@@ -3,7 +3,7 @@
 Provides the L2-orthonormal Jacobi polynomial evaluations and quadrature
 rules every reference element is built from.  All of this runs once at
 setup time on the host; only the resulting small operator matrices ever
-reach the TPU.
+reach the device.
 
 Capability parity with reference ``src/Basis1D.jl`` (jacobiP :105,
 grad_jacobiP :89, gauss_quad :59, gauss_lobatto_quad :24,

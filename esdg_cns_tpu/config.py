@@ -48,14 +48,10 @@ class SimConfig:
     # scheme
     inviscid_dissipation: bool = True
     viscous_dissipation: bool = False
-    flux_diff_impl: str = "auto"  # auto|xla|lines|lines_pallas|pallas|fused
-    cns_volume_impl: str = "auto"  # CNS affine: auto|xla|fused|fused_hex
-                                   # ('auto' = composed-operator affine path
-                                   # when applicable, else the generic RHS)
-    cns_viscous_impl: str = "auto"  # auto|xla|fused: fused = the viscous
-                                    # mid-section Pallas kernel
-                                    # (ops.pallas_viscous; requires a fused
-                                    # volume path + native rhstest)
+    flux_diff_impl: str = "auto"  # auto|xla|lines|lines_perm|lines_rot
+    cns_volume_impl: str = "auto"  # CNS: auto|xla ('auto' = composed-
+                                   # operator affine path when the mesh is
+                                   # affine; 'xla' = the generic RHS)
     rhstest_mode: str = "native"   # native|compensated|f64 diagnostics
 
     # stepping
@@ -137,15 +133,6 @@ def build_problem(cfg: SimConfig, bc=None, device_mesh=None,
     elif cfg.equation == "euler":
         from .solvers import make_euler_rhs
 
-        if cfg.flux_diff_impl == "fused":
-            from .solvers.euler_fused import make_euler_rhs_fused
-
-            if bc is not None:
-                raise ValueError("fused path supports periodic meshes only")
-            return disc, make_euler_rhs_fused(
-                disc, gamma=cfg.gamma, dissipation=cfg.inviscid_dissipation,
-                rhstest_mode=cfg.rhstest_mode,
-            )
         rhs = make_euler_rhs(
             disc, gamma=cfg.gamma, dissipation=cfg.inviscid_dissipation,
             flux_diff_impl=cfg.flux_diff_impl,
@@ -164,56 +151,16 @@ def build_problem(cfg: SimConfig, bc=None, device_mesh=None,
             viscous_dissipation=cfg.viscous_dissipation,
             rhstest_mode=cfg.rhstest_mode,
         )
-        # 'fused' is an Euler-path value (the hex volume+surface
-        # kernels); for CNS it means "let the builder decide"
-        fd_impl = ("auto" if cfg.flux_diff_impl == "fused"
-                   else cfg.flux_diff_impl)
-        if cfg.cns_volume_impl == "fused" and not (
-            disc.affine and disc.elem_type == "tri"
-        ):
-            # never silently downgrade an explicit request (mirrors the
-            # flux_diff_impl behavior, which raises on invalid combos)
+        if cfg.cns_volume_impl not in ("auto", "xla"):
             raise ValueError(
-                "cns_volume_impl='fused' requires an affine tri mesh "
-                f"(got elem_type={disc.elem_type!r}, affine={disc.affine})"
-            )
-        collocated_hex = (disc.elem_type == "hex"
-                          and disc.line_ops is not None)
-        if cfg.cns_volume_impl == "fused_hex" and not (
-            disc.affine and collocated_hex
-        ):
-            raise ValueError(
-                "cns_volume_impl='fused_hex' requires an affine "
-                "collocated hex mesh "
-                f"(got elem_type={disc.elem_type!r}, affine={disc.affine})"
-            )
-        if cfg.cns_volume_impl != "xla" and disc.affine:
-            # production path: composed affine operators; the fused
-            # modal volume kernel is designed for (and validated on)
-            # modal tri elements — collocated hexes ride the Euler
-            # fused volume kernel ('fused_hex') — on TPU ('auto') or
-            # anywhere when forced (interpreted off-TPU)
-            on_tpu = jax.devices()[0].platform == "tpu"
-            use_fused = disc.elem_type == "tri" and (
-                cfg.cns_volume_impl == "fused"
-                or (cfg.cns_volume_impl == "auto" and on_tpu)
-            )
-            use_fused_hex = collocated_hex and (
-                cfg.cns_volume_impl == "fused_hex"
-                or (cfg.cns_volume_impl == "auto" and on_tpu)
-            )
-            volume_impl = ("fused" if use_fused
-                           else "fused_hex" if use_fused_hex else "xla")
+                f"unknown cns_volume_impl {cfg.cns_volume_impl!r} "
+                "(expected 'auto' or 'xla')")
+        if cfg.cns_volume_impl == "auto" and disc.affine:
             rhs = make_cns_rhs_affine(
-                disc, flux_diff_impl=fd_impl,
-                volume_impl=volume_impl,
-                viscous_impl=cfg.cns_viscous_impl,
-                interpret=(use_fused or use_fused_hex) and not on_tpu,
-                **kw,
-            )
+                disc, flux_diff_impl=cfg.flux_diff_impl, **kw)
         else:
             rhs = make_cns_rhs(
-                disc, flux_diff_impl=fd_impl, **kw,
+                disc, flux_diff_impl=cfg.flux_diff_impl, **kw,
             )
     else:
         raise ValueError(f"unknown equation {cfg.equation!r}")

@@ -5,9 +5,9 @@ init_mesh :275/:389) and the per-driver hybridized-operator packing
 (e.g. dg2D_euler_tri.jl:70-77) into a single frozen pytree that jitted
 RHS functions take as an argument.
 
-TPU-first layout decisions:
+Layout decisions:
   * element axis last everywhere: state [Nf, Np, K], traces [Nfq, K] —
-    K maps to TPU lanes and is the sharded axis;
+    K is the vectorized and the sharded axis;
   * ``mapP`` is an int32 row-major flat index (node * K + elem) into the
     flattened [Nfq, K] trace array: one XLA gather, no scatter anywhere;
   * geometric factors are stored at the hybridized points, collapsed to a
@@ -89,7 +89,7 @@ class Discretization:
 
         On fully periodic uniform hex grids (grid_shape set) the generic
         XLA gather is replaced by six rolls along the structured element
-        axes — cheap static data movement on TPU.
+        axes — cheap static data movement.
         """
         if self.grid_shape is not None and self.elem_type == "hex":
             # flat-K rolls along the lane axis (never splitting it into
@@ -225,8 +225,8 @@ def build_discretization(
     # snap sub-roundoff metric entries to exact zero, AFFINE meshes
     # only: on axis-aligned meshes the off-diagonal geofacs (and
     # off-axis normal components below) are pure setup-matmul noise
-    # (~1e-16 absolute from O(1) coordinates); zeroing them makes the
-    # axis-aligned kernel specialization (ops.pallas_volume diag=True)
+    # (~1e-16 absolute from O(1) coordinates); zeroing them makes any
+    # axis-aligned specialization that statically drops those terms
     # bit-consistent with the general contraction.  The curl-form noise
     # is RELATIVE to the coordinate scale, not the metric scale: geo
     # entries shrink like (1/k1d)^2 while the absolute noise stays

@@ -7,7 +7,7 @@ entropy-stable driver repeats (e.g. reference
 ``examples/dg2D_euler_tri.jl:45-77``), promoted here to a first-class
 framework component.
 
-Design notes (TPU-first):
+Design notes:
   * Everything here is one-time host-side setup; outputs are small dense
     float64 matrices that get cast to the compute dtype and baked into the
     jitted RHS as constants.

@@ -5,16 +5,15 @@ dense_hadamard_sum dg2D_euler_tri.jl:88-126, sparse_hadamard_sum
 dg3D_euler_hex.jl:122-164, flux_differencing!
 dg2D_CNS_cavity_optimized.jl:326-347).
 
-TPU-native design: instead of the reference's per-element scalar loops
-with skew-symmetry halving and scatter accumulation, we compute the
-all-pairs two-point fluxes as broadcast VPU ops over [Nh, Nh, K] tiles
-and contract against the (element-scaled) skew operators.  Recompute is
-cheaper than scatter on TPU; the zero face-face block of the skew
-operators makes those pairs contribute exactly zero, so no index
-gymnastics are needed for correctness.  A fused Pallas kernel with the
-same semantics (tiling K into VMEM-resident blocks and skipping the
-face-face block) lives in ``pallas_fd.py``; this XLA version is the
-portable reference path and the autodiff path.
+Design: instead of the reference's per-element scalar loops with
+skew-symmetry halving and scatter accumulation, we compute the all-pairs
+two-point fluxes as broadcast elementwise ops over [Nh, Nh, K] and
+contract against the (element-scaled) skew operators.  Recompute
+replaces scatter; the zero face-face block of the skew operators makes
+those pairs contribute exactly zero, so no index gymnastics are needed
+for correctness.  This is the path for modal (simplex) elements and the
+plain reference the line-sparse path (tensor_product_fd) is tested
+against.
 """
 
 from __future__ import annotations

@@ -1,11 +1,8 @@
 """Compile a structured neighbor exchange out of the mapP gather.
 
 The generic trace exchange is ``jnp.take(flat, map_p)`` — an arbitrary
-gather along the lane (element) axis, which is the single most
-expensive op in the tri/quad RHS on TPU (measured 3.3 ms for a
-12-field exchange at K=32768, more than the Pallas flux-differencing
-kernel itself).  But on the uniform grids every workload here uses,
-mapP is not arbitrary: all elements of the same "kind" (e.g. the
+gather along the element axis.  But on the uniform grids every workload
+here uses, mapP is not arbitrary: all elements of the same "kind" (e.g. the
 lower/upper triangles of a grid cell) see their neighbor at the same
 element-index offset.  This module discovers that structure on the
 host, at setup time, directly from mapP — no assumptions about the
@@ -18,7 +15,7 @@ generator beyond gridness:
 
       out[face] = select_k  masked  roll(uf[perm_rows], -offset)
 
-  — static lane rolls and sublane row picks, no gather at all.
+  — static element-axis rolls and row picks, no gather at all.
 
 Falls back to None (caller keeps the gather) for genuinely
 unstructured meshes.  The fully-periodic-hex fast path in
@@ -27,8 +24,8 @@ generalizes; tri/quad grids and partially periodic hex grids (e.g. the
 3D shocktube) compile here.
 
 Reference counterpart: none — the reference's exchange is the Julia
-array gather ``x[mapP]`` (src/node_map_functions.jl); this is the
-TPU-native re-expression.
+array gather ``x[mapP]`` (src/node_map_functions.jl); this is its
+gather-free re-expression.
 """
 
 from __future__ import annotations
@@ -96,9 +93,7 @@ def apply_roll_plan(plan, masks, uf: jnp.ndarray) -> jnp.ndarray:
     ONE shared flip of the whole trace block (computed lazily, at most
     one reverse per exchange instead of one per face-pattern);
     anything else becomes single-row slices + one concat.  XLA fuses
-    all of these, while `uf[..., perm, :]` lowers to a sublane-axis
-    gather (20 of them dominated the compiled cavity RHS op mix,
-    round 3).
+    all of these, while `uf[..., perm, :]` lowers to a gather.
 
     Same contract as the generic mapP gather (and bit-identical to it:
     tests/test_roll_exchange.py)."""

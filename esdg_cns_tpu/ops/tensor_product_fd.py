@@ -255,10 +255,8 @@ def flux_differencing_lines_perm(qh, qlog, geo, gamma, *, elem_type: str,
     partner at offset ap is a static permutation gather of the node
     axis, the face partner is a static face->volume index map, and the
     skew-negative face-row reduction is one small 0/1-weighted GEMM per
-    face.  Rationale (measured at N=4, K=13824 on v5e): the reshape
-    form's (n1, ...) axes and 1-extent line slices fight the TPU's
-    (8, 128) native tiling — 12.7 ms of a 17 ms RHS went to the fd —
-    while flat layouts keep every step a full-width vector op.
+    face.  No (n1, ...) axes or 1-extent line slices appear, so every
+    step is an op on full-width flat arrays.
     """
     nf, nh, k = qh.shape
     dim = 3 if elem_type == "hex" else 2
@@ -356,7 +354,7 @@ def flux_differencing_lines_perm(qh, qlog, geo, gamma, *, elem_type: str,
             wfr = c * jnp.stack(fr)
             acc = acc + wfr
             # skew-negative face rows: out[m] = -sum_{i: fidx[i]==m} wfr[i]
-            # — a 0/1 [nfp, Nq] contraction, i.e. one small MXU GEMM
+            # — a 0/1 [nfp, Nq] contraction, i.e. one small GEMM
             rmat = np.zeros((nfp, nq))
             rmat[fidx, idx] = 1.0
             contrib = -jnp.einsum(
@@ -375,15 +373,11 @@ def flux_differencing_lines_rot(qh, qlog, geo, gamma, *, elem_type: str,
     """Line-sparse flux differencing with ROTATED layouts (affine hex).
 
     The reshape form's per-direction views place the line axis at
-    different positions; for d=0/1 that puts an n1-extent dimension in
-    the last-two (sublane) slots, which the TPU pads to 8 (60% waste at
-    n1=5) and relayouts between steps — measured 11.7 ms of a 15.8 ms
-    N=4 RHS.  Here every direction is first rotated by a sublane
-    TRANSPOSE (one cheap relayout pass, ~0.1 ms per array) so the line
-    coordinate is the SLOWEST node axis: all flux evaluations then run
-    on [.., n1, n1^2, K] views whose last-two dims (n1^2, K) tile
-    cleanly, the partner block is a contiguous leading-axis slice, and
-    the face-row reduction is a plain leading-axis sum.  Semantics equal
+    different positions.  Here every direction is first rotated by one
+    transpose so the line coordinate is the SLOWEST node axis: all flux
+    evaluations then run on [.., n1, n1^2, K] views, the partner block
+    is a contiguous leading-axis slice, and the face-row reduction is a
+    plain leading-axis sum.  Semantics equal
     to flux_differencing_lines to roundoff (tested).
 
     Affine hex only (the benchmark family); falls back to
@@ -471,223 +465,3 @@ def flux_differencing_lines_rot(qh, qlog, geo, gamma, *, elem_type: str,
 
     parts = [acc] + [face_parts[i] for i in range(6)]
     return 2.0 * jnp.concatenate(parts, axis=1)
-
-
-def _hex_line_coeffs(line_ops: LineOps):
-    """Host-built coefficient tensors for the Pallas hex kernel.
-
-    cvol[d*n1d + ap, i] = wgroup_d(i) * S1[a_d(i), ap]
-    cface[d*2 + side, i] = (-+) 0.5 * wgroup_d(i) * e(-+)[a_d(i)]
-    (replicated over 128 lanes so they can ship as VMEM blocks).
-    """
-    n1 = line_ops.n1d
-    s1 = np.asarray(line_ops.s1)
-    em = np.asarray(line_ops.e_minus)
-    ep = np.asarray(line_ops.e_plus)
-    w1 = np.asarray(line_ops.w1)
-    nq = n1 ** 3
-    idx = np.arange(nq)
-    coord = [idx % n1, (idx // n1) % n1, idx // (n1 * n1)]
-    wq = w1[coord[0]] * w1[coord[1]] * w1[coord[2]]
-
-    cvol = np.zeros((3 * n1, nq))
-    cface = np.zeros((6, nq))
-    for d in range(3):
-        a = coord[d]
-        wg = wq / w1[a]
-        for ap in range(n1):
-            cvol[d * n1 + ap] = wg * s1[a, ap]
-        cface[d * 2 + 0] = -0.5 * wg * em[a]
-        cface[d * 2 + 1] = 0.5 * wg * ep[a]
-    rep = lambda c: np.repeat(c[:, :, None], 128, axis=2)
-    return rep(cvol), rep(cface)
-
-
-def _hex_lines_kernel(qh_ref, qlog_ref, geo_ref, cvol_ref, cface_ref,
-                      out_ref, *, n1, gamma, curved):
-    """Fused line-sparse flux differencing for one hex element block.
-
-    Entire partner loop unrolled on VMEM values; no HBM intermediates.
-
-    NOTE: study/portable variant of pallas_volume._volume_kernel's fd
-    mid-section (the production path); it deliberately lacks the diag
-    axis-aligned specialization, view_acc and pad_x options that live
-    there.  Correctness fixes to the pair bookkeeping must be applied
-    to BOTH loops.
-    """
-    nq = n1 ** 3
-    nfp = n1 * n1
-    nf = qh_ref.shape[0]
-    kb = qh_ref.shape[2]
-
-    qh = qh_ref[...]
-    qlog = qlog_ref[...]
-    geo = geo_ref[...]
-    cvol = cvol_ref[...]
-    cface = cface_ref[...]
-
-    shapes = {0: (nfp, n1), 1: (n1, n1, n1), 2: (n1, nfp)}
-    axes = {0: 1, 1: 1, 2: 0}
-
-    acc_vol = [jnp.zeros((nq, kb), qh.dtype) for _ in range(nf)]
-    face_out = {}
-
-    vol = [qh[f, :nq] for f in range(nf)]
-    vlog = [qlog[l, :nq] for l in range(2)]
-
-    for d in range(3):
-        shape, axis = shapes[d], axes[d]
-        vshape = (*shape, kb)
-        vol_d = [v.reshape(vshape) for v in vol]
-        log_d = [l.reshape(vshape) for l in vlog]
-
-        if curved:
-            geo_d = [geo[d * 3 + x, :nq].reshape(vshape) for x in range(3)]
-        else:
-            geo_d = [
-                geo[d * 3 + x, 0].reshape((1,) * len(shape) + (kb,))
-                for x in range(3)
-            ]
-
-        def contract(fluxes, gavg=None):
-            # gavg: pre-averaged (and row-sliced) metric terms for the
-            # curved path; None -> the element's affine/volume metrics
-            out = []
-            for f in range(nf):
-                t = None
-                for x in range(3):
-                    g = geo_d[x] if gavg is None else gavg[x]
-                    term = g * fluxes[x][f]
-                    t = term if t is None else t + term
-                out.append(t)
-            return out
-
-        def line_slice(arr, j):
-            sl = [slice(None)] * arr.ndim
-            sl[axis] = slice(j, j + 1)
-            return arr[tuple(sl)]
-
-        def axis_slice(arr, hi):
-            sl = [slice(None)] * arr.ndim
-            sl[axis] = slice(0, hi)
-            return arr[tuple(sl)]
-
-        # triangular vol-vol line pairs (S1 skew, zero diagonal): each
-        # plane pair evaluated once, plane-ap row = negated line sum
-        for ap in range(1, n1):
-            qi = tuple(axis_slice(v, ap) for v in vol_d)
-            li = tuple(axis_slice(l, ap) for l in log_d)
-            qj = tuple(line_slice(v, ap) for v in vol_d)
-            lj = tuple(line_slice(l, ap) for l in log_d)
-            fluxes = ec_flux_fields(qi, qj, li, lj, gamma)
-            gj = ([0.5 * (axis_slice(g, ap) + line_slice(g, ap))
-                   for g in geo_d] if curved else None)
-            fr = contract(fluxes, gj)
-            c = axis_slice(cvol[d * n1 + ap, :, 0:1].reshape(*shape, 1), ap)
-            zshape = list(shape) + [kb]
-            zshape[axis] = n1 - ap - 1
-            for f in range(nf):
-                w = c * fr[f]
-                parts = [w, -jnp.sum(w, axis=axis, keepdims=True)]
-                if n1 - ap - 1:
-                    parts.append(jnp.zeros(zshape, w.dtype))
-                acc_vol[f] = acc_vol[f] + jnp.concatenate(
-                    parts, axis=axis).reshape(nq, kb)
-
-        for side in range(2):
-            fid = 2 * d + side
-            rows = slice(nq + fid * nfp, nq + (fid + 1) * nfp)
-            fshape = list(shape)
-            fshape[axis] = 1
-            fvals = tuple(qh[f, rows].reshape(*fshape, kb) for f in range(nf))
-            flog = tuple(qlog[l, rows].reshape(*fshape, kb) for l in range(2))
-            fluxes = ec_flux_fields(tuple(vol_d), fvals, tuple(log_d), flog,
-                                    gamma)
-            if curved:
-                gj = [0.5 * (geo_d[x] + geo[d * 3 + x, rows].reshape(
-                    *fshape, kb)) for x in range(3)]
-            else:
-                gj = None
-            fr = contract(fluxes, gj)
-            c = cface[fid, :, 0:1].reshape(*shape, 1)
-            face_out[fid] = []
-            for f in range(nf):
-                w = c * fr[f]
-                acc_vol[f] = acc_vol[f] + w.reshape(nq, kb)
-                face_out[fid].append(
-                    -jnp.sum(w, axis=axis).reshape(nfp, kb)
-                )
-
-    for f in range(nf):
-        out_ref[f, :nq, :] = 2.0 * acc_vol[f]
-        for fid in range(6):
-            out_ref[f, nq + fid * nfp: nq + (fid + 1) * nfp, :] = (
-                2.0 * face_out[fid][f]
-            )
-
-
-def flux_differencing_lines_pallas(qh, qlog, geo, gamma, *, elem_type: str,
-                                   line_ops: LineOps, nq: int,
-                                   block_k: int = 128,
-                                   interpret: bool = False):
-    """Fused Pallas line-sparse flux differencing (hex only).
-
-    One kernel per element block: the whole 3 x (n1d + 2) partner loop
-    runs on VMEM-resident values (a device trace showed the XLA version
-    splitting into hundreds of small data-movement kernels per RHS).
-    Falls back to the XLA path for quads.
-    """
-    if elem_type != "hex":
-        return flux_differencing_lines(qh, qlog, geo, gamma,
-                                       elem_type=elem_type,
-                                       line_ops=line_ops, nq=nq)
-    import functools as _ft
-
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nf, nh, k = qh.shape
-    curved = geo.shape[1] != 1
-    kb = min(block_k, k)
-    pad = (-k) % kb
-    if pad:
-        qh = jnp.pad(qh, ((0, 0), (0, 0), (0, pad)), constant_values=1.0)
-        qlog = jnp.pad(qlog, ((0, 0), (0, 0), (0, pad)))
-        geo = jnp.pad(geo, ((0, 0), (0, 0), (0, pad)))
-    kp = k + pad
-    ng = geo.shape[1]
-
-    cvol_np, cface_np = _hex_line_coeffs(line_ops)
-    cvol = jnp.asarray(cvol_np, qh.dtype)
-    cface = jnp.asarray(cface_np, qh.dtype)
-    n1 = line_ops.n1d
-
-    kernel = _ft.partial(_hex_lines_kernel, n1=n1, gamma=gamma, curved=curved)
-    out = pl.pallas_call(
-        kernel,
-        grid=(kp // kb,),
-        in_specs=[
-            pl.BlockSpec((nf, nh, kb), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, nh, kb), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((geo.shape[0], ng, kb), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3 * n1, nq, 128), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((6, nq, 128), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((nf, nh, kb), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nf, nh, kp), qh.dtype),
-        # the N=4 unrolled-line temporaries need ~36 MB of kernel stack
-        # at block_k=128, past the 16 MB default scoped-VMEM limit
-        # (v5e has 128 MB); same budget as ops.pallas_volume
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(qh, qlog, geo, cvol, cface)
-    return out[:, :, :k]

@@ -1,23 +1,10 @@
 from . import launch
 from .ensemble import ensemble
-from .halo import (
-    HaloExchange,
-    HexSlabHalo,
-    build_halo_exchange,
-    build_hex_slab_halo,
-)
-from .scaling_model import (
-    V5E,
-    ChipSpec,
-    halo_bytes_per_rhs,
-    measure_exchange_rows,
-    predict_scaling,
-)
-from .scaling_model import report as scaling_report
+from .halo import HaloExchange, build_halo_exchange
+from .scaling_model import halo_bytes_per_rhs, measure_exchange_rows
 from .sharding import (
     make_sharded_cns_rhs,
     make_sharded_euler_rhs,
-    make_sharded_euler_rhs_fused,
     make_sharded_rhs,
     partition_specs,
     shard_discretization,
@@ -26,19 +13,12 @@ from .sharding import (
 __all__ = [
     "ensemble",
     "launch",
-    "ChipSpec",
-    "V5E",
     "halo_bytes_per_rhs",
     "measure_exchange_rows",
-    "predict_scaling",
-    "scaling_report",
     "HaloExchange",
-    "HexSlabHalo",
     "build_halo_exchange",
-    "build_hex_slab_halo",
     "make_sharded_cns_rhs",
     "make_sharded_euler_rhs",
-    "make_sharded_euler_rhs_fused",
     "make_sharded_rhs",
     "partition_specs",
     "shard_discretization",

@@ -1,4 +1,4 @@
-"""Explicit halo exchange over ICI for slab-decomposed element axes.
+"""Explicit ring halo exchange for slab-decomposed element axes.
 
 The pjit/SPMD path (sharding.py) lets XLA turn the global trace gather
 into collectives.  This module is the explicitly-scheduled alternative:
@@ -49,93 +49,6 @@ class HaloExchange:
         buf = jnp.concatenate([flat, recv_left, recv_right], axis=-1)
         out = jnp.take(buf, self.table.reshape(-1), axis=-1)
         return out.reshape(*lead, nfq, kloc)
-
-
-@pytree_dataclass(meta_fields=("axis_name", "n_devices", "grid_shape"))
-class HexSlabHalo:
-    """Structured halo for fully periodic uniform hex grids, slab-
-    decomposed along the slowest (z) grid axis.
-
-    Matches ``Discretization.gather_traces``'s flat-roll exchange but
-    per-shard: with each device owning whole z-layers, the x- and
-    y-direction rolls never cross the slab boundary (their periodic
-    wraps are within a z-layer, fixed by the same mask blend as the
-    single-device path), so the only interconnect traffic is one
-    element-layer of +z/-z face traces per neighbor — two ring
-    ``ppermute`` sends of [nfp, kx*ky] per field, the cheapest possible
-    exchange for this decomposition (SURVEY.md 2.4: halo = face traces
-    only; reference analogue is the serial ``x[mapP]`` gather).
-    """
-
-    axis_name: str
-    n_devices: int
-    grid_shape: tuple        # global (kz, ky, kx)
-    lo_x: jnp.ndarray        # bool [K] -> sharded to [K_local]
-    hi_x: jnp.ndarray
-    lo_y: jnp.ndarray
-    hi_y: jnp.ndarray
-
-    def gather(self, uf: jnp.ndarray) -> jnp.ndarray:
-        """Neighbor traces inside shard_map; uf [..., Nfq, K_local]."""
-        kz, ky, kx = self.grid_shape
-        lead = uf.shape[:-2]
-        nfq, kloc = uf.shape[-2:]
-        nfp = nfq // 6
-        v = uf.reshape(*lead, 6, nfp, kloc)
-        fidx = len(lead)
-
-        def take_face(i):
-            return v[(slice(None),) * fidx + (i,)]     # [.., nfp, Kloc]
-
-        outs = []
-        for s, p, lo, hi, fm, fp_ in (
-            (1, kx, self.lo_x, self.hi_x, take_face(1), take_face(0)),
-            (kx, kx * ky, self.lo_y, self.hi_y, take_face(3), take_face(2)),
-        ):
-            outs.append(jnp.where(lo, jnp.roll(fm, s - p, axis=-1),
-                                  jnp.roll(fm, s, axis=-1)))
-            outs.append(jnp.where(hi, jnp.roll(fp_, p - s, axis=-1),
-                                  jnp.roll(fp_, -s, axis=-1)))
-
-        # z direction: local shift by one layer + ring exchange of the
-        # boundary layer (global periodic wrap is the ring's periodicity)
-        s = kx * ky
-        n = self.n_devices
-        face_m, face_p = take_face(4), take_face(5)
-        fwd = [(i, (i + 1) % n) for i in range(n)]
-        bwd = [(i, (i - 1) % n) for i in range(n)]
-        recv_prev = jax.lax.ppermute(face_p[..., kloc - s:], self.axis_name,
-                                     perm=fwd)
-        recv_next = jax.lax.ppermute(face_m[..., :s], self.axis_name,
-                                     perm=bwd)
-        outs.append(jnp.concatenate([recv_prev, face_p[..., :kloc - s]],
-                                    axis=-1))
-        outs.append(jnp.concatenate([face_m[..., s:], recv_next], axis=-1))
-        out = jnp.stack(outs, axis=fidx)
-        return out.reshape(uf.shape)
-
-
-def build_hex_slab_halo(disc: Discretization, n_devices: int,
-                        axis_name: str = "e") -> HexSlabHalo:
-    """Halo for the fused hex path: requires grid_shape with kz % n == 0."""
-    if disc.grid_shape is None or disc.elem_type != "hex":
-        raise ValueError("hex slab halo needs a fully periodic uniform "
-                         "hex grid (grid_shape set)")
-    kz, ky, kx = disc.grid_shape
-    if kz % n_devices != 0:
-        raise ValueError(f"kz={kz} not divisible by {n_devices} devices")
-    k = disc.num_elements
-    idx = np.arange(k)
-    xs, ys = idx % kx, (idx // kx) % ky
-    return HexSlabHalo(
-        axis_name=axis_name,
-        n_devices=n_devices,
-        grid_shape=(kz, ky, kx),
-        lo_x=jnp.asarray(xs == 0),
-        hi_x=jnp.asarray(xs == kx - 1),
-        lo_y=jnp.asarray(ys == 0),
-        hi_y=jnp.asarray(ys == ky - 1),
-    )
 
 
 def build_halo_exchange(disc: Discretization, n_devices: int,

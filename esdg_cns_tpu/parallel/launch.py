@@ -1,10 +1,11 @@
 """Multi-host / multi-process bootstrap (SURVEY.md §2.4 launcher row).
 
 The reference is a single-process serial code; its "cluster" is one
-Julia VM.  On TPU pods the runtime is SPMD across hosts: every host
-runs the same program, ``jax.distributed.initialize`` wires up the
-coordination service, and ``jax.devices()`` then reports the GLOBAL
-device set so a ``jax.sharding.Mesh`` spans the whole pod/slice.
+Julia VM.  Multi-process runs are SPMD: every process runs the same
+program, ``jax.distributed.initialize`` wires up the coordination
+service, and ``jax.devices()`` then reports the GLOBAL device set so a
+``jax.sharding.Mesh`` spans every process's devices.  One process can
+also drive all the GPUs of one host, which needs no initialization.
 
 Usage (same script on every host)::
 
@@ -15,18 +16,18 @@ Usage (same script on every host)::
                                        # global devices
     disc_s, q_s = shard_discretization(mesh, "e", disc, q0)
 
-On Cloud TPU the coordinator/process metadata is auto-detected by JAX;
-on other clusters set the standard variables consumed here:
+For several processes pass the coordinator explicitly or set the
+variables consumed here:
 
     JAX_COORDINATOR_ADDRESS  host:port of process 0
     JAX_NUM_PROCESSES        total process count
     JAX_PROCESS_ID           this process's rank
 
-Element-axis note: the 1D mesh over all global devices keeps the halo
-exchange (parallel/halo.py ring ppermute) on ICI within a slice;
-multi-slice jobs should pass ``shape=(n_slices, devs_per_slice)`` and
-put the element axis on the inner (ICI) mesh axis, using the outer
-(DCN) axis for the ensemble/data-parallel dimension
+Element-axis note: GPUs of one host are joined all to all, so the mesh
+is a plain reshape of ``jax.devices()``.  Jobs spanning several hosts
+should pass ``shape=(n_hosts, devs_per_host)`` and put the element axis
+(the halo ring of parallel/halo.py) on the inner, intra-host mesh axis,
+using the outer axis for the ensemble/data-parallel dimension
 (parallel/ensemble.py).
 """
 
@@ -49,14 +50,12 @@ def maybe_initialize(
     """Initialize the JAX distributed runtime when running multi-process.
 
     Arguments default to the ``JAX_COORDINATOR_ADDRESS`` /
-    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment variables; on
-    Cloud TPU all three are auto-detected by JAX and may be omitted
-    entirely (call with no arguments).
+    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment variables.
 
     Returns True when ``jax.distributed.initialize`` was called, False
-    for the single-process case (no coordinator configured and not on a
-    multi-host TPU environment).  Safe to call unconditionally at the
-    top of a driver script; calling twice is a no-op.
+    for the single-process case (no coordinator configured).  Safe to
+    call unconditionally at the top of a driver script; calling twice is
+    a no-op.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -66,12 +65,9 @@ def maybe_initialize(
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
-    # Cloud TPU pods: JAX auto-detects everything from the metadata
-    # server; elsewhere an explicit coordinator is required to go
-    # multi-process, and its absence means single-process (no-op).
-    on_tpu_pod = bool(os.environ.get("TPU_WORKER_HOSTNAMES")
-                      or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))
-    if coordinator_address is None and not on_tpu_pod:
+    # an explicit coordinator is required to go multi-process; its
+    # absence means single-process (no-op)
+    if coordinator_address is None:
         return False
 
     if jax.distributed.is_initialized():
@@ -96,8 +92,8 @@ def make_device_mesh(
     axis) over every global device — the layout every sharded RHS
     builder in parallel/sharding.py expects.  Pass ``shape`` (and
     matching ``axis_names``) for multi-axis layouts, e.g.
-    ``shape=(n_slices, devs_per_slice), axis_names=("ens", "e")`` to
-    keep the halo ring on ICI and the ensemble axis on DCN.
+    ``shape=(n_hosts, devs_per_host), axis_names=("ens", "e")`` to
+    keep the halo ring inside a host and the ensemble axis across hosts.
     """
     devices = np.asarray(jax.devices() if devices is None else devices)
     if shape is None:

@@ -1,16 +1,16 @@
 """Multi-chip execution: element-axis domain decomposition.
 
 The reference is a serial code (SURVEY.md 2.4); its only cross-element
-data dependence is the ``mapP`` face-trace gather.  On TPU the element
-axis K (last axis of every array) is the sharding axis:
+data dependence is the ``mapP`` face-trace gather.  The element axis K
+(last axis of every array) is the sharding axis:
 
   * ``shard_discretization`` — pjit/SPMD path: annotate every leaf whose
     trailing axis is K with ``P(..., 'e')``, replicate the small
     reference operators, and let XLA's SPMD partitioner turn the trace
     gather into collectives and the diagnostics into cross-device
     reductions.  Zero code changes to the RHS.
-  * ``partition_elements`` / halo machinery (shard_map + ppermute over
-    ICI) — the explicitly-scheduled path for uniform slab decompositions,
+  * ``make_sharded_rhs`` / halo machinery (shard_map + ppermute) — the
+    explicitly-scheduled path for uniform slab decompositions,
     where each device owns a contiguous slab of elements and only
     exchanges boundary face traces with its ring neighbors.
 """
@@ -118,18 +118,6 @@ def make_sharded_rhs(mesh: Mesh, disc: Discretization, builder,
                     "supported under shard_map; use the pjit path "
                     "(shard_discretization)"
                 )
-    # the fused kernels specialize on axis-aligned metrics; detection
-    # needs the concrete global disc (inside shard_map the leaves are
-    # tracers and detection is forced off), so pre-detect here for ANY
-    # builder that accepts the flag (harmless no-op on paths that
-    # ignore it)
-    import inspect
-
-    if ("axis_aligned" in inspect.signature(builder).parameters
-            and "axis_aligned" not in kw):
-        from ..ops.pallas_volume import detect_axis_aligned
-
-        kw["axis_aligned"] = detect_axis_aligned(disc)
     halo = build_halo_exchange(disc, n, axis)
     k = disc.num_elements
     disc_specs = partition_specs(disc, k, axis)
@@ -142,24 +130,10 @@ def make_sharded_rhs(mesh: Mesh, disc: Discretization, builder,
                       **(dict(bc=bc_in) if bc_in is not None else {}), **kw)
         return rhs(q, t)
 
-    # pallas_call outputs carry no varying-mesh-axes annotation, so
-    # builders that route through the fused Mosaic kernels fail the vma
-    # check; skip it ONLY for those (shapes/specs are still validated),
-    # keeping the full safety check for pure-XLA builders.  viscous_impl
-    # 'auto' resolves to 'fused' exactly when the volume path is fused
-    # (solvers/cns_fused.py), so gating on the explicit kernel selectors
-    # covers it.
-    uses_pallas = (
-        kw.get("volume_impl") in ("fused", "fused_hex")
-        or kw.get("viscous_impl") == "fused"
-        or kw.get("surface_impl") == "fused"
-        or kw.get("flux_diff_impl") in ("pallas", "lines_pallas")
-    )
     sm = shard_map(
         fn, mesh=mesh,
         in_specs=(qspec, P(), disc_specs, halo_specs, bc_specs),
         out_specs=(qspec, P()),
-        check_vma=not uses_pallas,
     )
 
     def rhs(q, t=0.0):
@@ -192,52 +166,3 @@ def make_sharded_cns_rhs_affine(mesh: Mesh, disc: Discretization,
 
     return make_sharded_rhs(mesh, disc, make_cns_rhs_affine, axis, **kw)
 
-
-def make_sharded_euler_rhs_fused(mesh: Mesh, disc: Discretization,
-                                 axis: str = "e", **kw):
-    """The production fused hex path (Pallas volume + surface kernels)
-    under shard_map: each device runs the fused kernels on its z-slab of
-    elements; the neighbor exchange is the structured HexSlabHalo (local
-    flat rolls for x/y, one element-layer ring ppermute for z).
-
-    This is the benchmarked configuration (bench.py) made multi-chip;
-    bit-checked against the single-device fused path in
-    tests/test_sharding.py.
-    """
-    from jax import shard_map
-
-    from ..ops.pallas_volume import detect_axis_aligned
-    from ..solvers.euler_fused import make_euler_rhs_fused
-    from .halo import build_hex_slab_halo
-
-    # detection needs concrete arrays; run it on the global disc HERE
-    # (inside shard_map the disc leaves are tracers and detection would
-    # be forced off)
-    kw.setdefault("axis_aligned", detect_axis_aligned(disc))
-
-    n = mesh.shape[axis]
-    halo = build_hex_slab_halo(disc, n, axis)
-    k = disc.num_elements
-    disc_specs = partition_specs(disc, k, axis)
-    halo_specs = partition_specs(halo, k, axis)
-    qspec = P(None, None, axis)
-
-    def fn(q, t, disc_in, halo_in):
-        rhs = make_euler_rhs_fused(
-            disc_in, gather_fn=halo_in.gather, psum_axis=axis, **kw
-        )
-        return rhs(q, t)
-
-    sm = shard_map(
-        fn, mesh=mesh,
-        in_specs=(qspec, P(), disc_specs, halo_specs),
-        out_specs=(qspec, P()),
-        # pallas_call outputs carry no varying-mesh-axes annotation;
-        # skip the vma check (shapes/specs are still validated)
-        check_vma=False,
-    )
-
-    def rhs(q, t=0.0):
-        return sm(q, jnp.asarray(t, q.dtype), disc, halo)
-
-    return rhs

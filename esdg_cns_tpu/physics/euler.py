@@ -79,9 +79,7 @@ def logmean(a_l, a_r, log_l=None, log_r=None):
 def _split(u):
     """U[f,...] -> (rho, mom[d,...], E).
 
-    Positive last index: a scalar negative index lowers to
-    dynamic_slice, which Mosaic (Pallas TPU) cannot lower — this
-    helper runs inside the fused surface kernel."""
+    Positive last index (static slicing only)."""
     return u[0], u[1:-1], u[u.shape[0] - 1]
 
 
@@ -204,9 +202,8 @@ def ec_flux_fields(ql_fields, qr_fields, logs_l, logs_r, gamma=GAMMA,
         work is direction-independent and unaffected).
 
     Returns a tuple over the requested directions of per-field tuples
-    ((f_rho, f_mom..., f_e), ...).  No stacked-array indexing, so this
-    core is usable inside Pallas kernels (Mosaic has no dynamic-slice /
-    scatter on values).
+    ((f_rho, f_mom..., f_e), ...).  No stacked-array indexing: every
+    field is its own array.
     """
     rho_l, *vel_l, beta_l = ql_fields
     rho_r, *vel_r, beta_r = qr_fields
@@ -250,8 +247,6 @@ def ec_flux(q_l, q_r, qlog_l=None, qlog_r=None, gamma=GAMMA):
     nf = q_l.shape[0]
     ql_fields = tuple(q_l[i] for i in range(nf))
     qr_fields = tuple(q_r[i] for i in range(nf))
-    # positive beta index: negative scalar indexing lowers to
-    # dynamic_slice, unsupported inside Pallas TPU kernels
     logs_l = (
         (jnp.log(q_l[0]), jnp.log(q_l[nf - 1])) if qlog_l is None
         else (qlog_l[0], qlog_l[1])

@@ -11,8 +11,6 @@ roundoff (tests/test_cns_fused.py).
 
 from __future__ import annotations
 
-import functools
-
 import jax.numpy as jnp
 
 from ..physics import euler as phys
@@ -22,22 +20,16 @@ def resolve_flux_diff(disc, flux_diff_impl: str):
     """Select the volume flux-differencing kernel.
 
     Returns fd(qh, qlog, q_skew, geo, gamma) -> QF [Nf, Nh, K].
-    Impls: 'auto' | 'xla' | 'pallas' | 'lines' | 'lines_pallas'.
+    Impls: 'auto' | 'xla' | 'lines' | 'lines_perm' | 'lines_rot'.
     """
     from ..ops.flux_differencing import flux_differencing_xla
 
     nq = disc.nq
     if flux_diff_impl == "auto":
         flux_diff_impl = "lines" if disc.line_ops is not None else "xla"
-    if flux_diff_impl == "pallas":
-        from ..ops.pallas_fd import flux_differencing_pallas
-
-        return functools.partial(flux_differencing_pallas, nq=nq)
-    if flux_diff_impl in ("lines", "lines_pallas", "lines_perm",
-                          "lines_rot"):
+    if flux_diff_impl in ("lines", "lines_perm", "lines_rot"):
         from ..ops.tensor_product_fd import (
             flux_differencing_lines,
-            flux_differencing_lines_pallas,
             flux_differencing_lines_perm,
             flux_differencing_lines_rot,
         )
@@ -45,7 +37,6 @@ def resolve_flux_diff(disc, flux_diff_impl: str):
         if disc.line_ops is None:
             raise ValueError("'lines' requires a collocated quad/hex mesh")
         impl = {"lines": flux_differencing_lines,
-                "lines_pallas": flux_differencing_lines_pallas,
                 "lines_perm": flux_differencing_lines_perm,
                 "lines_rot": flux_differencing_lines_rot}[flux_diff_impl]
 
@@ -79,7 +70,7 @@ def adiabatic_mask(disc, bc):
 def flux_to_conservative(q, gamma):
     """(rho, u_1..d, beta) flux-variable rows -> conservative rows
     (rho, m_1..d, E) with p = rho / (2 beta), dimension-generic."""
-    rho, beta = q[0], q[q.shape[0] - 1]  # positive index: Pallas-safe
+    rho, beta = q[0], q[q.shape[0] - 1]
     vel = [q[1 + d] for d in range(q.shape[0] - 2)]
     e = rho / (2.0 * beta * (gamma - 1.0)) + 0.5 * rho * sum(
         v * v for v in vel
@@ -97,7 +88,7 @@ def entropy_vars_from_flux(qp, qp_log, gamma):
     (rho, u_1..d, beta) and their precomputed logs — comm-avoiding:
     the CNS exchanges no longer carry the projected entropy traces
     (4-of-10 payload rows in 2D); both face sides rebuild v from the
-    same exchanged payload with ~13 cheap VPU ops and NO
+    same exchanged payload with ~13 cheap elementwise ops and NO
     transcendentals (log p = log rho - log beta - log 2):
 
       s   = -(gamma-1) log rho - log beta - log 2
@@ -109,7 +100,7 @@ def entropy_vars_from_flux(qp, qp_log, gamma):
     the projected trace the neighbor would have sent up to an
     ulp-level round-trip error — the same accepted tradeoff as the
     conservative recompute in inviscid_surface (docs/design.md).
-    Pallas-safe (positive indices only)."""
+    """
     dim = qp.shape[0] - 2
     gm1 = gamma - 1.0
     beta = qp[dim + 1]
@@ -134,8 +125,7 @@ def inviscid_surface(disc, gather, qm, uf, qm_log, *, gamma, dissipation,
     them pointwise from the exchanged flux variables (the wavespeed's
     normal momentum uses the LOCAL normal; conforming faces carry
     exactly negated normals, and negation/|.| are exact in IEEE, so
-    the value is preserved to setup roundoff).  Same design as the
-    fused Euler surface kernel (ops.pallas_volume._surface_kernel).
+    the value is preserved to setup roundoff).
 
     Returns (flux [Nf, Nfq, K] ready for LIFT, extras_nbr) where
     extras_nbr is the gathered counterpart of extra_parts concatenated
@@ -198,7 +188,7 @@ def viscous_penalty_rows(disc, bc, adiab_mask, vuf, vup, dv, re):
     reference dg2D_CNS_cavity_optimized.jl:817-840, with the special
     adiabatic-wall energy row via bc.penalty_energy_rows)."""
     dim = disc.dim
-    tau = -1.0 / (re * vuf[dim + 1])  # positive index: Pallas-safe
+    tau = -1.0 / (re * vuf[dim + 1])
     rows = [jnp.zeros_like(dv[0])]
     for d in range(dim):
         rows.append(tau * dv[1 + d])

@@ -2,7 +2,7 @@
 
 The reference imposes BCs by mutating the gathered neighbor traces at
 precomputed boundary index sets (init_BC_funs,
-dg2D_CNS_cavity_optimized.jl:135-265).  TPU-native equivalent: boolean
+dg2D_CNS_cavity_optimized.jl:135-265).  Equivalent here: boolean
 region masks [Nfq, K] and ghost states blended in with jnp.where — no
 scatter, fully vectorized, jit-stable.
 
@@ -114,9 +114,6 @@ class WallBC:
             # start from the interior trace, then mirror
             vel_in = [jnp.where(m, qm[1 + d], v) for d, v in enumerate(vel)]
             vel_out = self._mirror_normal(vel_in, m)
-            # positive beta index: these hooks also run inside the fused
-            # surface Pallas kernel, where scalar negative indexing
-            # lowers to dynamic_slice (unsupported by Mosaic)
             rows = [jnp.where(m, qm[0], qp[0])]
             rows += vel_out
             rows += [jnp.where(m, qm[dim + 1], qp[dim + 1])]

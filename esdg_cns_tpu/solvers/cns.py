@@ -136,7 +136,8 @@ def make_cns_rhs(
     """
     import jax
 
-    from ..utils.compensated import weighted_entropy_residual
+    from ..utils.compensated import (require_exact_mode,
+                                     weighted_entropy_residual)
     from ._shared import (
         adiabatic_mask,
         inviscid_surface,
@@ -146,6 +147,7 @@ def make_cns_rhs(
     )
     from .euler import entropy_projection
 
+    require_exact_mode(rhstest_mode)
     dim = disc.dim
     nq = disc.nq
     re = (1.0 / mu) if re is None else re

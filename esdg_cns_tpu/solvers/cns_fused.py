@@ -2,8 +2,7 @@
 
 The integrated CNS RHS (solvers.cns.make_cns_rhs) applies ~20 tiny
 per-stage operator GEMMs ([Np~10, Nq~12] matrices against [4, ., K]
-states); at N=3, K=32768 on one v5e chip that path is HBM/occupancy
-bound, not FLOP bound (measured 8.4 ms/stage, viscous half dominant).
+states), so it is bound by memory traffic and launch count, not FLOPs.
 
 On AFFINE meshes the geometric factors and 1/J are per-element
 scalars, so they commute with every reference-element operator and the
@@ -54,75 +53,22 @@ def make_cns_rhs_affine(
     viscous_dissipation: bool = False,
     re: Optional[float] = None,
     flux_diff_impl: str = "auto",
-    volume_impl: str = "xla",
-    viscous_impl: str = "auto",
-    surface_impl: str = "auto",
     compute_rhstest: bool = True,
     rhstest_mode: str = "native",
     gather_fn=None,
     psum_axis: Optional[str] = None,
-    interpret: bool = False,
-    block_k: Optional[int] = None,
-    axis_aligned: Optional[bool] = None,
-    fd_mode: Optional[str] = None,
 ):
     """Composed-operator CNS RHS for affine meshes (tri/quad/hex).
 
     Same contract as solvers.cns.make_cns_rhs; requires disc.affine.
-
-    volume_impl:
-      'xla'   — stacked front-end GEMM + flux_diff_impl kernel.
-      'fused' — the whole inviscid volume stage (projection, inverse
-        map, flux differencing, Ph) plus the trace/viscous front end
-        runs as ONE Pallas kernel (ops.pallas_modal_volume, tri only);
-        flux_diff_impl is ignored.  `interpret` runs it in interpreter
-        mode (CPU tests).
-      'fused_hex' — collocated-hex variant: the inviscid volume stage
-        rides the Euler fused volume kernel (ops.pallas_volume); the
-        viscous front end collapses because Pq = I on Gauss-collocated
-        hexes (vuq = v(U), vqd = D_r v, vuf = Ef v).  flux_diff_impl is
-        ignored.
-
-    viscous_impl:
-      'fused' — the whole viscous mid-section (front GEMM, gradients,
-        K(v), stress traces, divergence, entropy-production partials)
-        runs as ONE Pallas kernel (ops.pallas_viscous); requires
-        volume_impl in ('fused', 'fused_hex') and
-        rhstest_mode='native' (the kernel's per-element production
-        partials are native f32).  The XLA mid-section is ~80 device
-        ops of launch latency for <0.5 GFLOP — the kernel removes it.
-      'xla'  — the composed-operator XLA mid-section.
-      'auto' — 'fused' whenever its requirements hold.
-
-    surface_impl:
-      'merged' — the surface section AND the viscous mid-section run
-        as ONE Pallas kernel (ops.pallas_viscous.
-        cns_surface_viscous_pallas): beyond removing the surface
-        section's XLA launches, uf / vuf / vup / dv exist only in
-        VMEM (requires the fused-viscous prerequisites).
-      'merged_tail' — 'merged' plus the tail fold: the flux/penalty
-        LIFTs, divergence and 1/J assembly also run in-kernel against
-        the volume kernel's ph_qf; only the post-exchange jump LIFT
-        remains XLA.  Requires compute_rhstest=False (the split dq_v
-        is not materialized).
-      'fused' — the whole post-exchange surface section (inviscid BC
-        ghosts, EC face flux + LF, entropy-variable BC + BR1 jump,
-        interface-penalty rows) runs as ONE Pallas kernel
-        (ops.pallas_cns_surface); the round-4 cumulative profile
-        attributed ~25% of the production cavity RHS to this section's
-        XLA launch/glue latency.  BC semantics identical by
-        construction: the kernel rebuilds the WallBC pytree from its
-        inputs and calls the same hooks.
-      'xla'  — the jnp path (solvers._shared.inviscid_surface).
-      'auto' — the merged kernel on both fused paths: 'merged_tail'
-        when compute_rhstest=False, 'merged' otherwise (round-5 A/Bs,
-        DOF*stage/s: tri 1.563/1.488/1.438e9 and hex 2.834/2.717/
-        2.577e9 for merged_tail/merged/XLA); the XLA surface on the
-        non-fused volume paths.
+    The inviscid volume stage is the stacked front-end GEMM followed by
+    the ``flux_diff_impl`` flux differencing ('auto': line-sparse on
+    collocated quad/hex, dense all-pairs otherwise).
     """
     if not disc.affine:
         raise ValueError("make_cns_rhs_affine requires an affine mesh")
-    from ..utils.compensated import weighted_entropy_residual
+    from ..utils.compensated import (require_exact_mode,
+                                     weighted_entropy_residual)
     from ._shared import (
         adiabatic_mask,
         inviscid_surface,
@@ -131,28 +77,13 @@ def make_cns_rhs_affine(
         viscous_penalty_rows,
     )
 
+    require_exact_mode(rhstest_mode)
     dim = disc.dim
     nq = disc.nq
     nh = disc.nh
     re = (1.0 / mu) if re is None else re
 
-    if volume_impl == "fused_hex" and (
-        disc.elem_type != "hex" or disc.line_ops is None
-    ):
-        raise ValueError("volume_impl='fused_hex' requires a collocated "
-                         "hex discretization")
-    if volume_impl == "fused_hex":
-        from ..ops.pallas_volume import detect_axis_aligned
-
-        # build-time, host-side; under shard_map the caller must pass
-        # axis_aligned detected on the concrete global disc (detection
-        # on tracer leaves is forced off)
-        hex_diag = (detect_axis_aligned(disc) if axis_aligned is None
-                    else axis_aligned)
-
-    # the fused volume kernels contain their own flux differencing
-    fd = (None if volume_impl in ("fused", "fused_hex")
-          else resolve_flux_diff(disc, flux_diff_impl))
+    fd = resolve_flux_diff(disc, flux_diff_impl)
     adiab = adiabatic_mask(disc, bc)
     gather = disc.gather_traces if gather_fn is None else gather_fn
 
@@ -163,91 +94,18 @@ def make_cns_rhs_affine(
     vqlift = mm(disc.vq, disc.lift)                  # [Nq, Nfq]
     drpq = [mm(di, disc.pq) for di in disc.d]        # dim x [Np, Nq]
     vqdrpq = [mm(disc.vq, dp) for dp in drpq]        # dim x [Nq, Nq]
-    if volume_impl == "fused_hex":
-        front = None                                 # Pq = I: nothing left
-    elif volume_impl == "fused":
-        # the fused kernel produces raw v(U) at quadrature; only the
-        # projected rows remain for XLA
-        front = jnp.concatenate([vqpq, *vqdrpq], axis=0)
-    else:
-        # one front-end operator on v(U) at quadrature:
-        #   rows [0:Nh)         -> Vh Pq (entropy projection; faces = traces)
-        #   rows [Nh : Nh+Nq)   -> Vq Pq (projected entropy vars at quad)
-        #   rows [Nh+(1+r)Nq:.) -> Vq D_r Pq (projected reference gradients)
-        front = jnp.concatenate([disc.vhp, vqpq, *vqdrpq], axis=0)
+    # one front-end operator on v(U) at quadrature:
+    #   rows [0:Nh)         -> Vh Pq (entropy projection; faces = traces)
+    #   rows [Nh : Nh+Nq)   -> Vq Pq (projected entropy vars at quad)
+    #   rows [Nh+(1+r)Nq:.) -> Vq D_r Pq (projected reference gradients)
+    front = jnp.concatenate([disc.vhp, vqpq, *vqdrpq], axis=0)
     drpq_stack = jnp.stack(drpq)                     # [dim, Np, Nq]
 
     # affine: per-element scalars
     inv_j = disc.inv_jac[:1]                         # [1, K]
     geo = disc.geo                                   # [dim*dim, 1, K]
-    nfields = dim + 2
 
-    # viscous_impl resolution: the fused mid-section kernel consumes the
-    # raw v(U) the fused volume kernels already emit, so it requires a
-    # fused volume path; its per-element entropy-production partials
-    # are native f32, so rhstest_mode must be 'native'
-    fused_visc_ok = (volume_impl in ("fused", "fused_hex")
-                     and rhstest_mode == "native")
-    if viscous_impl == "fused" and not fused_visc_ok:
-        raise ValueError(
-            "viscous_impl='fused' requires volume_impl in "
-            "('fused', 'fused_hex') and rhstest_mode='native'"
-        )
-    use_fused_viscous = (viscous_impl == "fused"
-                         or (viscous_impl == "auto" and fused_visc_ok))
-    if viscous_impl not in ("auto", "fused", "xla"):
-        raise ValueError(f"unknown viscous_impl: {viscous_impl!r}")
-    if surface_impl not in ("auto", "fused", "merged", "merged_tail",
-                            "xla"):
-        raise ValueError(f"unknown surface_impl: {surface_impl!r}")
-    if surface_impl == "merged_tail" and compute_rhstest:
-        # the tail-folded kernel emits only the assembled dq partial;
-        # the separate dq_v the rhstest splitting needs is unavailable
-        raise ValueError("surface_impl='merged_tail' requires "
-                         "compute_rhstest=False (use 'merged')")
-    # (the STANDALONE fused surface kernel lost its round-4 A/B once
-    # the contracted stress exchange shrank the XLA tail; it stays
-    # available via surface_impl='fused')
-    # round 5: auto takes the merged kernel on BOTH fused paths (tri
-    # head-to-head 1.563/1.488/1.438e9 for merged_tail/merged/XLA;
-    # hex 2.834/2.717/2.577e9 — the r4 "XLA surface wins on hex"
-    # result was for the STANDALONE surface kernel, not the merge)
-    auto_merged = (surface_impl == "auto" and fused_visc_ok
-                   and viscous_impl in ("auto", "fused"))
-    use_merged_surface = surface_impl in ("merged", "merged_tail") \
-        or auto_merged
-    # tail-folded variant whenever the rhstest splitting doesn't need
-    # the separate dq_v (A/B: 1.563e9 merged_tail vs 1.488e9 merged vs
-    # 1.438e9 XLA surface at the bench config)
-    fold_tail = surface_impl == "merged_tail" or (
-        auto_merged and not compute_rhstest)
-    if use_merged_surface and not fused_visc_ok:
-        raise ValueError(
-            "surface_impl='merged' requires volume_impl in "
-            "('fused', 'fused_hex') and rhstest_mode='native'")
-    if use_merged_surface and viscous_impl == "xla":
-        raise ValueError("surface_impl='merged' subsumes the viscous "
-                         "mid-section; viscous_impl='xla' conflicts")
-    use_fused_surface = surface_impl == "fused"
-    if use_fused_surface or use_merged_surface:
-        from ..ops.pallas_cns_surface import prepare_surface_bc
-
-        if use_fused_surface:
-            from ..ops.pallas_cns_surface import cns_surface_pallas
-
-        surf_pool, surf_recipe, surf_evals = prepare_surface_bc(
-            bc, adiab, dim)
-    if use_fused_viscous:
-        # front operator for the kernel.  Collocated hexes: Vq = Pq = I,
-        # so the projection block is skipped entirely (proj=False —
-        # gradient rows only, no identity MXU pass) and the kernel
-        # hands back the input v(U) as vuq.
-        visc_proj = volume_impl != "fused_hex"
-        front_visc = (front if visc_proj
-                      else jnp.concatenate(vqdrpq, axis=0))
-        nxj_stack = jnp.stack(list(disc.nxj))        # [dim, Nfq, K]
-
-    def front_xla(q):
+    def front_end(q):
         uq = _apply(disc.vq, q)
         vu_q = phys.v_ufun(uq, gamma)
         fr = _apply(front, vu_q)                     # [Nf, Nh+(1+dim)Nq, K]
@@ -267,191 +125,38 @@ def make_cns_rhs_affine(
         return (qh[:, nq:, :], uh[:, nq:, :], qlog[:, nq:, :], vuf,
                 vuq, vqd, ph_qf)
 
-    def front_fused(q):
-        from ..ops.pallas_modal_volume import euler_modal_volume_pallas
-        from ._shared import entropy_vars_from_flux, flux_to_conservative
-
-        ph_qf, tr, vu_q = euler_modal_volume_pallas(
-            q, disc.geo, disc.q_skew, disc.vq, disc.vhp, disc.ph, gamma,
-            nq=nq, interpret=interpret,
-            **({} if block_k is None else {"block_k": block_k}),
-            **({} if fd_mode is None else {"fd_mode": fd_mode}),
-        )
-        qm = tr[:nfields]
-        qm_log = tr[nfields:nfields + 2]
-        # the kernel streams only [qm | logs] to HBM (8 fewer rows);
-        # the conservative / entropy traces are rebuilt pointwise via
-        # the exact inverse maps — the same recompute the neighbor side
-        # of the exchange does, so dv = vup - vuf becomes BITWISE
-        # antisymmetric across conforming faces (both sides evaluate
-        # the identical formula on the same pair of values)
-        uf = flux_to_conservative(qm, gamma)
-        vuf = entropy_vars_from_flux(qm, qm_log, gamma)
-        if use_fused_viscous:
-            # the viscous kernel runs the front GEMM itself on vu_q
-            return qm, uf, qm_log, vuf, vu_q, None, ph_qf
-        fr = _apply(front, vu_q)                     # [Nf, (1+dim)Nq, K]
-        vuq = fr[:, :nq]
-        vqd = [fr[:, (1 + r) * nq:(2 + r) * nq] for r in range(dim)]
-        return qm, uf, qm_log, vuf, vuq, vqd, ph_qf
-
-    def front_fused_hex(q):
-        # Gauss-collocated hex: Vq = Pq = I, so the viscous front end is
-        # pointwise/operator-direct (vuq = v(U), vqd = D_r v, vuf = Ef v)
-        # and the whole inviscid volume stage rides the Euler fused
-        # kernel (projection, inverse map, line fd, Ph in VMEM),
-        # mirroring the Euler 'auto' mode: at misaligned degrees
-        # (8 % n1 != 0) the sublane-padded joint kernel, at aligned
-        # N>=4 the split form with wide lane blocks (PARITY rounds
-        # 3-4).
-        from ..ops.pallas_volume import (default_block_k,
-                                         euler_volume_pallas,
-                                         euler_volume_split_pallas)
-
-        # misaligned orders AND aligned n1=4 ride the packed-fold fd
-        # body (round 5: 1.38x over pad8 in isolation, +21% full-RHS
-        # at N=4, +18% at N=3 where 4-row lines are half-tiles but the
-        # 16-row fold is two full tiles)
-        packed = 8 % (disc.n + 1) != 0 or disc.n + 1 == 4
-        split = disc.n >= 4 and not packed
-        vol = euler_volume_split_pallas if split else euler_volume_pallas
-        mode = ("joint_packed" if packed else "split" if split
-                else "joint")
-        bk = (default_block_k(disc.n, mode)
-              if block_k is None else block_k)
-        ph_qf, tr = vol(
-            q, disc.geo, disc.vhp[nq:], disc.lift, gamma,
-            nq=nq, line_ops=disc.line_ops, interpret=interpret,
-            block_k=bk, diag=hex_diag, pad_x=packed,
-            **({"packed": True} if packed else {}),
-        )
-        qm = tr[:nfields]                    # (rho, u_1..d, beta) at faces
-        qm_log = tr[nfields:nfields + 2]
-        # conservative + entropy face values from the flux variables
-        # (pointwise exact inverse maps; the entropy rebuild replaces
-        # an Ef GEMM — qm IS the flux image of the projected face
-        # entropy state, so v(qm) = Ef v(U) up to the roundtrip)
-        from ._shared import entropy_vars_from_flux, flux_to_conservative
-
-        uf = flux_to_conservative(qm, gamma)
-        vu_q = phys.v_ufun(q, gamma)
-        vuf = entropy_vars_from_flux(qm, qm_log, gamma)
-        if use_fused_viscous:
-            # the viscous kernel computes vqd = D_r v itself
-            return qm, uf, qm_log, vuf, vu_q, None, ph_qf
-        # same composed operators as the xla path (on collocated hexes
-        # vqdrpq = D_r and vhp[nq:] = Ef up to setup roundoff)
-        vqd = [_apply(vqdrpq[r], vu_q) for r in range(dim)]
-        return qm, uf, qm_log, vuf, vu_q, vqd, ph_qf
-
-    front_fn = {
-        "fused": front_fused, "fused_hex": front_fused_hex,
-    }.get(volume_impl, front_xla)
-
     def rhs(q, t=0.0):
-        # ---- fused entropy/volume front end ----
-        qm, uf, qm_log, vuf, vuq, vqd, ph_qf = front_fn(q)
+        # ---- entropy projection + volume flux differencing ----
+        qm, uf, qm_log, vuf, vuq, vqd, ph_qf = front_end(q)
 
         # ---- ONE merged exchange (inviscid + entropy traces) + surface --
-        if use_merged_surface:
-            # surface + viscous mid-section in ONE kernel: the gather
-            # stays XLA (cross-element data movement); uf / vuf / vup /
-            # dv are recomputed or kept in VMEM (the XLA uf/vuf above
-            # are dead code here and eliminated)
-            from ..ops.pallas_viscous import cns_surface_viscous_pallas
+        flux, vup = inviscid_surface(
+            disc, gather, qm, uf, qm_log,
+            gamma=gamma, dissipation=inviscid_dissipation,
+            bc_inviscid=bc.inviscid if bc is not None else None,
+            entropy_extras=True, t=t,
+        )
 
-            nbr = gather(jnp.concatenate([qm, qm_log], axis=0))
-            pool = surf_pool
-            if surf_evals:
-                pool = jnp.concatenate(
-                    [surf_pool] + [e(t) for e in surf_evals], axis=0)
-            kw_m = dict(
-                gamma=gamma, mu=mu, lam=lam, pr=pr, re=re, nq=nq,
-                dissipation=inviscid_dissipation,
-                with_penalty=viscous_dissipation, recipe=surf_recipe,
-                proj=visc_proj, contract=True, interpret=interpret,
-                **({} if block_k is None else {"block_k": block_k}),
-            )
-            args_m = (vuq, qm, qm_log, nbr, list(disc.nxj), disc.sj,
-                      disc.inv_sj, pool, geo, inv_j, disc.wjq,
-                      front_visc, vqlift, disc.vhp[nq:], drpq_stack)
-            if fold_tail:
-                dq_part, t_f, prod, vuq = cns_surface_viscous_pallas(
-                    *args_m, ph_qf, disc.lift, fold_tail=True, **kw_m)
-            else:
-                flux, pen, t_f, div, prod, vuq = \
-                    cns_surface_viscous_pallas(*args_m, **kw_m)
-            rhstest_visc = jnp.sum(prod)
-        elif use_fused_surface:
-            # fused post-exchange surface: the gather stays XLA (it is
-            # the cross-element data movement); BC ghosts, EC face
-            # flux + LF, entropy-variable BC and penalty rows run in
-            # one kernel (ops.pallas_cns_surface)
-            # comm-avoiding payload: qm + logs only; the kernel rebuilds
-            # the neighbor entropy traces (_shared.entropy_vars_from_flux)
-            nbr = gather(jnp.concatenate([qm, qm_log], axis=0))
-            pool = surf_pool
-            if surf_evals:
-                pool = jnp.concatenate(
-                    [surf_pool] + [e(t) for e in surf_evals], axis=0)
-            flux, dv, pen = cns_surface_pallas(
-                qm, uf, qm_log, vuf, nbr, list(disc.nxj), disc.sj,
-                disc.inv_sj, pool, gamma=gamma, re=re, dim=dim,
-                dissipation=inviscid_dissipation,
-                with_penalty=viscous_dissipation, recipe=surf_recipe,
-                interpret=interpret,
-                **({} if block_k is None else {"block_k": block_k}),
-            )
-        else:
-            flux, vup = inviscid_surface(
-                disc, gather, qm, uf, qm_log,
-                gamma=gamma, dissipation=inviscid_dissipation,
-                bc_inviscid=bc.inviscid if bc is not None else None,
-                entropy_extras=True, t=t,
-            )
+        # ---- viscous gradient BC traces ----
+        if bc is not None:
+            vup = bc.entropy_vars(disc, vuf, vup, t)
+        dv = vup - vuf
+        half_jumps = jnp.stack(
+            [0.5 * dv * disc.nxj[x][None] for x in range(dim)]
+        )                                            # [dim, Nf, Nfq, K]
+        grad_surf = _apply(vqlift, half_jumps)       # [dim, Nf, Nq, K]
+        grad_q = [
+            (sum(geo[r * dim + x] * vqd[r] for r in range(dim))
+             + grad_surf[x]) * inv_j
+            for x in range(dim)
+        ]
 
-            # ---- viscous gradient BC traces ----
-            if bc is not None:
-                vup = bc.entropy_vars(disc, vuf, vup, t)
-            dv = vup - vuf
-        if use_merged_surface:
-            pass                      # viscous section ran in the kernel
-        elif use_fused_viscous:
-            # ONE Pallas kernel: front GEMM, gradients, K(v), stress
-            # traces, divergence and the entropy-production partials
-            # (ops.pallas_viscous); `vuq` from front_fn is the raw
-            # v(U) the kernel consumes.  (A second kernel fusing the
-            # surface flux + LIFTs + assembly was built and measured
-            # SLOWER than this XLA tail — per-field in-kernel LIFT
-            # dots lose to XLA's single batched LIFT einsum; PARITY
-            # round 3 — so the tail below stays XLA.)
-            from ..ops.pallas_viscous import cns_viscous_pallas
+        sigma = viscous_flux_nd(vuq, grad_q, mu, lam, pr, gamma)
 
-            t_f, div, prod, vuq = cns_viscous_pallas(
-                vuq, dv, geo, nxj_stack, inv_j, disc.wjq, front_visc,
-                vqlift, disc.vhp[nq:], drpq_stack,
-                gamma=gamma, mu=mu, lam=lam, pr=pr, nq=nq,
-                interpret=interpret, proj=visc_proj, contract=True,
-                **({} if block_k is None else {"block_k": block_k}),
-            )
-            rhstest_visc = jnp.sum(prod)
-        else:
-            half_jumps = jnp.stack(
-                [0.5 * dv * disc.nxj[x][None] for x in range(dim)]
-            )                                        # [dim, Nf, Nfq, K]
-            grad_surf = _apply(vqlift, half_jumps)   # [dim, Nf, Nq, K]
-            grad_q = [
-                (sum(geo[r * dim + x] * vqd[r] for r in range(dim))
-                 + grad_surf[x]) * inv_j
-                for x in range(dim)
-            ]
-
-            sigma = viscous_flux_nd(vuq, grad_q, mu, lam, pr, gamma)
-
-            rhstest_visc = sum(
-                weighted_entropy_residual(disc.wjq, g, s, rhstest_mode)
-                for g, s in zip(grad_q, sigma)
-            )
+        rhstest_visc = sum(
+            weighted_entropy_residual(disc.wjq, g, s, rhstest_mode)
+            for g, s in zip(grad_q, sigma)
+        )
         if psum_axis is not None:
             rhstest_visc = jax.lax.psum(rhstest_visc, psum_axis)
 
@@ -462,36 +167,26 @@ def make_cns_rhs_affine(
         # shrinks the payload and drops the post-gather contraction
         # (comm-avoiding; the reference exchanges all components,
         # dg2D_CNS_cavity_optimized.jl:780-816). ----
-        if not use_fused_viscous:
-            ef = disc.vhp[nq:]
-            s_f_all = _apply(ef, jnp.stack(sigma))   # [dim, Nf, Nfq, K]
-            t_f = sum(s_f_all[x] * disc.nxj[x][None] for x in range(dim))
+        s_f_all = _apply(disc.vhp[nq:], jnp.stack(sigma))  # [dim,Nf,Nfq,K]
+        t_f = sum(s_f_all[x] * disc.nxj[x][None] for x in range(dim))
         t_ex = gather(t_f)
         t_pn = neighbor_traction(disc, bc, t_f, t_ex, t)
 
         # ---- viscous divergence (composed) + both LIFTs in one GEMM ----
-        if not use_fused_viscous:
-            g_r = jnp.stack([
-                sum(geo[r * dim + x] * sigma[x] for x in range(dim))
-                for r in range(dim)
-            ])                                       # [dim, Nf, Nq, K]
-            div = jnp.einsum("rij,rfjk->fik", drpq_stack, g_r,
-                             precision=jax.lax.Precision.HIGHEST)
+        g_r = jnp.stack([
+            sum(geo[r * dim + x] * sigma[x] for x in range(dim))
+            for r in range(dim)
+        ])                                           # [dim, Nf, Nq, K]
+        div = jnp.einsum("rij,rfjk->fik", drpq_stack, g_r,
+                         precision=jax.lax.Precision.HIGHEST)
 
         jump_n = 0.5 * (t_pn - t_f)
-        if use_merged_surface and fold_tail:
-            # everything but the post-exchange jump LIFT happened
-            # in-kernel: ONE lifted row + the 1/J scale remain
-            dq = dq_part + _apply(disc.lift, jump_n) * inv_j[None]
-            return dq, {"rhstest_visc": rhstest_visc}
         lift_in = [flux, jump_n]
         if viscous_dissipation:
             # like the reference (cavity_optimized:840-846), the lifted
             # penalty is added AFTER the 1/J scaling of dg_div
             lift_in.append(
-                pen if (use_fused_surface or use_merged_surface)
-                else viscous_penalty_rows(disc, bc, adiab, vuf, vup, dv, re)
-            )
+                viscous_penalty_rows(disc, bc, adiab, vuf, vup, dv, re))
 
         lifted = _apply(disc.lift, jnp.stack(lift_in))
         dq_i = -(ph_qf + lifted[0]) * inv_j[None]

@@ -18,9 +18,9 @@ from ..core.discretization import Discretization
 
 
 def _apply(mat, x):
-    # HIGHEST: TPU f32 matmuls default to one bf16 MXU pass (~3 digits),
-    # which visibly pollutes the entropy balance; the operators are small
-    # so the 6-pass accurate form is cheap
+    # HIGHEST: without it an f32 matmul may run in reduced precision
+    # (TF32 on the GPU, ~3 digits), which visibly pollutes the entropy
+    # balance; the operators are small so full f32 is cheap
     return jnp.einsum("ij,...jk->...ik", mat, x,
                       precision=jax.lax.Precision.HIGHEST)
 

@@ -14,8 +14,8 @@ dg2D_euler_tri.jl:130-186, hex variant dg3D_euler_hex.jl:167-222):
 
 Everything is one jittable pure function of the stacked conservative
 state Q [Nf, Np, K]; the Discretization pytree is a closed-over
-argument.  All operator applications are einsums onto the MXU; all
-pointwise maps are VPU ops; the gather is a single XLA gather; there is
+argument.  All operator applications are einsums; all pointwise maps
+are fused elementwise ops; the gather is a single XLA gather; there is
 no scatter anywhere.
 """
 
@@ -32,9 +32,9 @@ from ..physics import euler as phys
 Array = jnp.ndarray
 
 
-# single source of the HIGHEST-precision operator apply (the default
-# TPU f32 matmul is one bf16 pass whose ~1e-3 relative error destroys
-# the discrete SBP identities the entropy balance relies on)
+# single source of the HIGHEST-precision operator apply (a reduced-
+# precision f32 matmul, e.g. TF32 on the GPU, has ~1e-3 relative error
+# and destroys the discrete SBP identities the entropy balance relies on)
 from .dg_ops import _apply  # noqa: E402
 
 
@@ -81,11 +81,12 @@ def make_euler_rhs(
         gathered neighbor traces (flux-variable and conservative ghost
         states; WallBC.inviscid has this signature).  Periodicity is
         already baked into mapP.
-      flux_diff_impl: 'xla' (portable), 'lines' (tensor-product sparse,
-        collocated quad/hex) or 'pallas' (fused TPU kernel).
+      flux_diff_impl: 'xla' (dense all-pairs), 'lines' (tensor-product
+        sparse, collocated quad/hex; also 'lines_perm' / 'lines_rot'
+        layouts) or 'auto' ('lines' where it applies).
       rhstest_mode: accumulation accuracy of the entropy-balance
-        diagnostic — 'native', 'compensated' (double-float Dot2, the
-        TPU f32 option) or 'f64' (utils.compensated).
+        diagnostic — 'native', 'compensated' (double-float Dot2 for f32
+        states) or 'f64' (utils.compensated).
       gather_fn: override for the neighbor-trace gather (the shard_map
         halo-exchange path passes HaloExchange.gather here).
       psum_axis: mesh axis over which diagnostics are all-reduced when
@@ -93,8 +94,10 @@ def make_euler_rhs(
 
     Returns rhs(q) -> (dq/dt [Nf, Np, K], aux dict with 'rhstest').
     """
+    from ..utils.compensated import require_exact_mode
     from ._shared import inviscid_surface, resolve_flux_diff
 
+    require_exact_mode(rhstest_mode)
     nq = disc.nq
     fd = resolve_flux_diff(disc, flux_diff_impl)
     gather = disc.gather_traces if gather_fn is None else gather_fn

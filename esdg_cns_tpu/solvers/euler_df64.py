@@ -1,10 +1,12 @@
-"""df64 (emulated float64) ES-DG Euler RHS: the TPU entropy acceptance.
+"""df64 (emulated float64) ES-DG Euler RHS: entropy acceptance from
+f32 state arithmetic.
 
 The reference attains machine-zero semi-discrete entropy residuals in
-its native Float64 (rhstest, dg2D_euler_tri.jl:177-183).  On TPU the
-production f32 RHS carries ~1.5e-5 of genuine flux-level roundoff
-(measured, PARITY.md round 2), so matching the acceptance ON TPU
-requires evaluating the RHS itself in emulated f64.  This module builds
+its native Float64 (rhstest, dg2D_euler_tri.jl:177-183).  The f32 RHS
+carries genuine flux-level roundoff, so matching the acceptance without
+native float64 requires evaluating the RHS itself in emulated f64
+(where the device has float64, as the GPU does, a native float64 run
+is the simpler check).  This module builds
 a double-float (hi, lo f32 pair, ~2^-48 precision; utils.df64) variant
 of the collocated Euler RHS:
 
@@ -14,14 +16,15 @@ of the collocated Euler RHS:
     difference of logs,
   * line-sparse volume flux differencing (the Kronecker structure of
     tensor_product_fd) with df accumulation,
-  * compensated operator applications (df_apply — GEMMs cannot ride the
-    MXU at df accuracy),
+  * compensated operator applications (df_apply — a matmul unit rounds
+    every partial sum and cannot reach df accuracy),
   * the neighbor exchange rides the same exact data movement
     (rolls/gathers) on the (hi, lo) planes.
 
-This is a VERIFICATION mode: expected ~10-100x the f32 cost (measured
-multiple in PARITY.md), used to certify entropy conservation /
-dissipation on-chip, not to run production steps.
+This is a VERIFICATION mode: expected ~10-100x the f32 cost, used to
+certify entropy conservation / dissipation on the device, not to run
+production steps.  The builder refuses a backend whose compiler breaks
+the error-free transformations (utils.df64.require_exact_eft).
 
 Scope: affine meshes, periodic (no BC hooks).  Collocated quad/hex
 elements ride the line-sparse fd; modal (tri/simplex) elements the
@@ -458,6 +461,7 @@ def make_euler_rhs_df64(
     """
     if not disc.affine:
         raise ValueError("df64 RHS supports affine meshes")
+    D.require_exact_eft("the df64 Euler RHS")
     collocated = disc.line_ops is not None
 
     nq, nh, np_ = disc.nq, disc.nh, disc.np_

@@ -3,7 +3,7 @@
 Capability parity with the reference implicit drivers
 (implicit_euler_2D.jl:168-250, implicit_burgers_2D.jl:130-178), which
 assemble global sparse Jacobians with ForwardDiff and direct-solve.
-That is CPU-idiomatic; the TPU-native equivalent keeps the same
+That is CPU-idiomatic; the accelerator equivalent keeps the same
 capability (implicit midpoint stepping of the ES-DG semi-discretization)
 with jax.jvp Jacobian-vector products and GMRES — no materialized global
 Jacobian, everything jittable.
@@ -19,7 +19,7 @@ regardless of conditioning):
     gather replaced by the identity, i.e. zero interface jumps) is
     exactly block-diagonal over elements, so its blocks are assembled
     exactly with Nf*Np simultaneous jvp probes (one probe column per
-    (field, node), all K elements at once — the TPU-native analogue of
+    (field, node), all K elements at once — the vectorized analogue of
     the reference's ForwardDiff block assembly) and inverted with one
     batched solve.  GMRES then iterates on the well-conditioned
     M^{-1}(I - dt/2 J) system; measured iteration counts in PARITY.md.
@@ -75,7 +75,7 @@ def element_block_jacobi_inv(res_fn: Callable, q: jnp.ndarray,
     masks, a single all-elements probe pass is used, which is exact only
     when ``res_fn`` has no cross-element coupling.
 
-    This is the TPU-native analogue of the reference's ForwardDiff
+    This is the vectorized analogue of the reference's ForwardDiff
     sparse block assembly (implicit_euler_2D.jl:179-185): ncolors*m
     simultaneous jvps, one batched inverse, no scatter.
     """

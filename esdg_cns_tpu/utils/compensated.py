@@ -1,11 +1,10 @@
-"""Compensated (double-float) reductions for f32 diagnostics on TPU.
+"""Compensated (double-float) reductions for f32 diagnostics.
 
 The entropy-balance diagnostic ``rhstest = sum(wJq * v * rhs)`` is a
 sum of ~1e6 O(1) terms whose exact value is tiny (zero in exact
 arithmetic for the dissipation-free scheme), so a native f32 reduction
-buries it under accumulation roundoff (measured -5.2e-6 on TPU at
-K=4096, PARITY.md).  TPU has no hardware f64, but every f32 VPU op is
-exact IEEE, which is all error-free transformations need: this module
+buries it under accumulation roundoff.  Every correctly rounded f32 op
+is all error-free transformations need: this module
 evaluates the triple-product reduction in "double-float" (a value
 carried as an unevaluated hi + lo pair, ~2^-48 effective precision)
 using Dekker/Knuth two_sum / two_prod building blocks and a log-depth
@@ -14,8 +13,7 @@ XLA.
 
 This isolates the *diagnostic's own* accumulation error; what remains
 is the genuine entropy defect of the f32-computed RHS (flux-level
-roundoff), which no summation scheme can remove.  VERDICT.md round-1
-item 9; measured numbers in PARITY.md.
+roundoff), which no summation scheme can remove.
 
 No reference counterpart (the reference is all Float64, where the
 native sum is already at the 1e-12 acceptance level).
@@ -98,9 +96,8 @@ def df_sum(hi, lo):
     """Pairwise-tree sum of double-float numbers; returns (hi, lo) scalars.
 
     Log-depth halving over CONTIGUOUS halves (pad once to a power of
-    two): stride-2 gathers would force a relayout pass per level on
-    TPU (measured 57 ms vs ~0 for contiguous halves at 1.3M terms);
-    contiguous slicing keeps every level a plain vector op.
+    two): contiguous slicing keeps every level a plain vector op, where
+    stride-2 gathers would add a relayout pass per level.
     """
     hi = hi.ravel()
     lo = lo.ravel()
@@ -134,17 +131,26 @@ def dot3_compensated(w, v, r):
     return hi + lo
 
 
+def require_exact_mode(mode: str) -> None:
+    """Build-time guard: 'compensated' relies on error-free
+    transformations, so it refuses a backend that breaks them
+    (utils.df64.require_exact_eft)."""
+    if mode == "compensated":
+        from .df64 import require_exact_eft
+
+        require_exact_eft("rhstest_mode='compensated'")
+
+
 def weighted_entropy_residual(wjq, v, rhs, mode: str = "native"):
     """Entropy-balance reduction sum(wJq * v * rhs) at selectable accuracy.
 
     mode:
       'native'      — plain f32/f64 jnp.sum (the round-1 behavior).
-      'compensated' — double-float Dot2 (TPU-friendly; isolates the
+      'compensated' — double-float Dot2 (f32 states; isolates the
                       RHS's genuine f32 entropy defect from the
                       diagnostic's own accumulation roundoff).
       'f64'         — upcast factors and sum in float64 (requires
-                      jax_enable_x64; XLA:TPU emulates f64 for
-                      elementwise/reduce, so this also runs on TPU).
+                      jax_enable_x64).
     """
     w = wjq[None] if wjq.ndim == v.ndim - 1 else wjq
     if mode == "native":

@@ -144,7 +144,7 @@ def write_vtu(path: str, disc, fields: Dict[str, np.ndarray]):
     Each field is a nodal array [Np, K]; fields are interpolated to the
     equi-spaced plot nodes and the elements are subdivided into linear
     VTK cells (segments / triangles / tetrahedra).  Plain-text XML, no
-    external dependencies — the TPU-era counterpart of the reference's
+    external dependencies — the counterpart of the reference's
     MATLAB text dumps (plot_cavity.m).
     """
     vp = np.asarray(disc.vp)

@@ -56,7 +56,8 @@ def becker_shocktube_errors(n: int, k: int, t_end: float = 0.1,
     qf, stats = jax.jit(
         lambda q: dopri45(rhs, q, t_end, dt0, err_tol=err_tol))(q0)
 
-    uq = np.asarray(jnp.einsum("ij,fjk->fik", disc.vq, qf))
+    uq = np.asarray(jnp.einsum("ij,fjk->fik", disc.vq, qf,
+                               precision=jax.lax.Precision.HIGHEST))
     uex = np.stack(shock.conservative(np.asarray(disc.xq[0]), t_end))
     w = np.asarray(disc.wjq)[None]
     l1 = float(sum(np.sum(w[0] * np.abs(uq[f] - uex[f]))
@@ -77,8 +78,8 @@ def regularized_lid(x):
 def boundary_velocity_error(disc, q, lid_mask, wall_mask, lid_profile):
     """Weighted boundary L2 mismatch of (u, v) vs lid/wall data
     (dg2D_CNS_convergence_test.jl:1070-1082)."""
-    # HIGHEST: TPU f32 matmuls default to one bf16 MXU pass (~1e-3
-    # relative), which would floor this convergence observable
+    # HIGHEST: a reduced-precision f32 matmul (TF32 on the GPU, ~1e-3
+    # relative) would floor this convergence observable
     qf = jnp.einsum("ij,fjk->fik", disc.vf, q,
                     precision=jax.lax.Precision.HIGHEST)
     u = qf[1] / qf[0]

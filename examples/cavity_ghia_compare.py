@@ -14,7 +14,7 @@ Running two Ma legs (0.3, 0.15) shows the deviation from Ghia SHRINKS
 as Ma -> 0, pinning the gap as physical (compressibility), not
 numerical error.
 
-    python examples/cavity_ghia_compare.py     # on the TPU
+    python examples/cavity_ghia_compare.py
 
 Env: T (default 100), N (3), K1D (16), MAS ("0.3,0.15"),
 OUT (default results/cavity_ghia_r04.json).
@@ -34,15 +34,6 @@ from common import env_float
 
 import jax
 
-try:
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from cavity_profile_convergence import run_one
 

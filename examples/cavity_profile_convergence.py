@@ -13,7 +13,7 @@ difference is several times smaller than 8->16 (the profiles are
 converging) and the extrema move monotonically toward the fine-grid
 values.
 
-    python examples/cavity_profile_convergence.py     # on the TPU
+    python examples/cavity_profile_convergence.py
 
 Env: T (default 100), RES (comma list, default "8,16,24"),
 OUT (default results/cavity_profiles_r04.json).
@@ -36,15 +36,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from esdg_cns_tpu.presets import lid_driven_cavity
 from esdg_cns_tpu.solvers import make_cns_rhs_affine
@@ -53,15 +44,12 @@ from esdg_cns_tpu.utils.postprocess import extract_line
 
 
 def run_one(n, k1d, re, ma, t_end, err_tol):
-    on_cpu = jax.devices()[0].platform == "cpu"
-    dtype = (jnp.float64 if on_cpu and jax.config.jax_enable_x64
-             else jnp.float32)
+    dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     disc, q0, bc, p = lid_driven_cavity(n=n, k1d=k1d, bctype="isothermal",
                                         ma=ma, re=re, dtype=dtype)
     rhs = make_cns_rhs_affine(
         disc, mu=p["mu"], pr=p["pr"], re=re, bc=bc,
         inviscid_dissipation=True, viscous_dissipation=True,
-        volume_impl="xla" if on_cpu else "fused",
     )
     cn = (n + 1) * (n + 2) / 2
     dt0 = min(0.5 * (2.0 / k1d) / cn, 2.0 / (cn * k1d * k1d))

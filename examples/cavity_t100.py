@@ -15,7 +15,7 @@ rerun without it to exercise a real cross-process restart (recorded in
 the output JSON as `resume_events`).
 
 Outputs:
-  OUT (default results/cavity_T100_r04.json): chunk summaries, dt /
+  OUT (default results/cavity_T100.json): chunk summaries, dt /
     rhstest / rhstest_visc histories (downsampled), wall times, resume
     events, and the steady-state centerline profiles u(0, y), v(x, 0).
   HIST_OUT (default results/cavity_t100_history.npz): full per-step
@@ -37,15 +37,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from esdg_cns_tpu.presets import lid_driven_cavity
 from esdg_cns_tpu.solvers import make_cns_rhs_affine
@@ -63,23 +54,18 @@ def main():
     err_tol = env_float("ERRTOL", 1e-5)
     stop_at_t = env_float("STOP_AT_T", -1.0)
     bctype = os.environ.get("BCTYPE", "isothermal")
-    out_path = os.environ.get("OUT", "results/cavity_T100_r04.json")
+    out_path = os.environ.get("OUT", "results/cavity_T100.json")
     hist_path = os.environ.get("HIST_OUT", "results/cavity_t100_history.npz")
     ckpt_dir = os.environ.get("CKPT_DIR", "results/cavity_t100_ckpt")
     max_records = env_int("MAX_RECORDS", 2048)
 
-    on_cpu = jax.devices()[0].platform == "cpu"
-    volume_impl = os.environ.get("VOLUME_IMPL",
-                                 "xla" if on_cpu else "fused")
-    dtype = jnp.float64 if on_cpu and jax.config.jax_enable_x64 \
-        else jnp.float32
+    dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
     disc, q0, bc, p = lid_driven_cavity(n=n, k1d=k1d, bctype=bctype,
                                         ma=ma, re=re, dtype=dtype)
     rhs = make_cns_rhs_affine(
         disc, mu=p["mu"], pr=p["pr"], re=re, bc=bc,
         inviscid_dissipation=True, viscous_dissipation=True,
-        volume_impl=volume_impl,
     )
     cn = (n + 1) * (n + 2) / 2
     dt0 = min(0.5 * (2.0 / k1d) / cn, 2.0 / (cn * k1d * k1d))
@@ -187,7 +173,7 @@ def main():
     out = {
         "config": {"n": n, "k1d": k1d, "re": re, "ma": ma,
                    "bctype": bctype, "t_end": t_end, "err_tol": err_tol,
-                   "volume_impl": volume_impl, "dtype": str(dtype.__name__),
+                   "dtype": str(dtype.__name__),
                    "platform": jax.devices()[0].platform},
         "t_final": float(t),
         "n_accepted": tot_acc,

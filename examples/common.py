@@ -12,6 +12,10 @@ if os.environ.get("EXAMPLES_CPU", "0") == "1":
 if os.environ.get("EXAMPLES_X64", "0") == "1":
     jax.config.update("jax_enable_x64", True)
 
+from esdg_cns_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 
 def env_int(name, default):
     return int(os.environ.get(name, default))

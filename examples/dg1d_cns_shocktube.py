@@ -26,7 +26,8 @@ def main():
     ns = int(np.ceil(t_end / dt))
     qf, _ = jax.jit(lambda q: ssprk33(rhs, q, t_end / ns, ns))(q0)
 
-    uq = jnp.einsum("ij,fjk->fik", disc.vq, qf)
+    uq = jnp.einsum("ij,fjk->fik", disc.vq, qf,
+                    precision=jax.lax.Precision.HIGHEST)
     uex = shock.conservative(np.asarray(disc.xq[0]), t_end)
     w = np.asarray(disc.wjq)
     uq = np.asarray(uq)

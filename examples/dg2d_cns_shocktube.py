@@ -45,7 +45,8 @@ def run_one(n, k1d, t_end):
             f"{shock.mu} is under-resolved at K1D={k1d}; raise K1D "
             f"(default 32) or mu")
 
-    uq = np.asarray(jnp.einsum("ij,fjk->fik", disc.vq, qf))
+    uq = np.asarray(jnp.einsum("ij,fjk->fik", disc.vq, qf,
+                               precision=jax.lax.Precision.HIGHEST))
     u1d = shock.conservative(np.asarray(disc.xq[0]).ravel(), t_end)
     uex = np.stack([u1d[0], u1d[1], 0 * u1d[0], u1d[2]]).reshape(uq.shape)
     w = np.asarray(disc.wjq)

@@ -33,7 +33,8 @@ def main():
     qf, _ = jax.jit(lambda q: lsrk45(rhs, q, cfg.t_end / ns, ns))(q0)
 
     def energy(q):
-        qq = jnp.einsum("ij,fjk->fik", disc.vq, q)
+        qq = jnp.einsum("ij,fjk->fik", disc.vq, q,
+                        precision=jax.lax.Precision.HIGHEST)
         return float(jnp.sum(disc.wjq[None] * qq * qq) / 2)
 
     print(f"{cfg.elem_type} N={cfg.n} K={disc.num_elements} tau={tau}: "

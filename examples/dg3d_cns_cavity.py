@@ -26,18 +26,17 @@ def main():
     re = env_float("RE", 100.0)
     t_end = env_float("T", 0.5)
     disc, q0, bc, p = lid_driven_cavity_3d(n=n, k1d=k1d, bctype=bctype, re=re)
-    impl = os.environ.get("IMPL", "generic")  # generic|xla|fused_hex
+    impl = os.environ.get("IMPL", "generic")  # generic|affine
     kw = dict(mu=p["mu"], pr=p["pr"], re=re, bc=bc,
               inviscid_dissipation=True, viscous_dissipation=True)
     if impl == "generic":
         rhs = make_cns_rhs(disc, **kw)
     else:
-        # the production path: composed affine operators; 'fused_hex'
-        # adds the Euler fused volume kernel + the fused viscous
-        # mid-section kernel (TPU)
+        # the production path: composed affine operators + line-sparse
+        # flux differencing
         from esdg_cns_tpu.solvers import make_cns_rhs_affine
 
-        rhs = make_cns_rhs_affine(disc, volume_impl=impl, **kw)
+        rhs = make_cns_rhs_affine(disc, **kw)
     cn = (n + 1) * (n + 2) * 3 / 2
     dt0 = min(0.5 * (2.0 / k1d) / cn, 2.0 / (cn * k1d * k1d))
     qf, stats = jax.jit(

@@ -28,7 +28,8 @@ def main():
     dt0 = 2.0 / (cn * k1d * k1d)
     qf, stats = jax.jit(lambda q: dopri45(rhs, q, t_end, dt0))(q0)
 
-    uq = np.asarray(jnp.einsum("ij,fjk->fik", disc.vq, qf))
+    uq = np.asarray(jnp.einsum("ij,fjk->fik", disc.vq, qf,
+                               precision=jax.lax.Precision.HIGHEST))
     u1d = shock.conservative(np.asarray(disc.xq[0]).ravel(), t_end)
     z = 0 * u1d[0]
     uex = np.stack([u1d[0], u1d[1], z, z, u1d[2]]).reshape(uq.shape)

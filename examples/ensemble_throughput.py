@@ -1,7 +1,7 @@
 """Does the DP/ensemble axis actually pay on hardware?
 
 The reference runs its parameter sweeps as serial re-solves
-(dg2D_CNS_convergence_test.jl:848-852).  The TPU-native replacement
+(dg2D_CNS_convergence_test.jl:848-852).  The replacement here
 vmaps the Reynolds axis into ONE program (parallel/ensemble.py,
 verification.wall_bc_reynolds_ensemble).  This measures both on the
 real chip at identical physics: B adaptive cavity solves to T, as
@@ -16,10 +16,10 @@ speedup, and the max |error difference| between the two executions of
 the same members (they run the same math; differences are
 reduction-order roundoff).
 
-    python examples/ensemble_throughput.py      # on the TPU
+    python examples/ensemble_throughput.py
 
 Env: N (2), K1D (8), T (0.1), B (8), OUT
-(results/ensemble_throughput_r04.json).
+(results/ensemble_throughput.json).
 """
 
 import json
@@ -36,12 +36,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(HERE, "..", ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from common import env_float, env_int
 
@@ -60,7 +54,7 @@ def main():
     k1d = env_int("K1D", 8)
     t_end = env_float("T", 0.1)
     b = env_int("B", 8)
-    out_path = os.environ.get("OUT", "results/ensemble_throughput_r04.json")
+    out_path = os.environ.get("OUT", "results/ensemble_throughput.json")
 
     disc, q0, bc, p = lid_driven_cavity(n=n, k1d=k1d,
                                         lid_profile=regularized_lid,

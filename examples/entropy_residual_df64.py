@@ -1,17 +1,17 @@
-"""TPU entropy acceptance: df64 (emulated f64) RHS on the N=3 hex config.
+"""Entropy acceptance: df64 (emulated f64) RHS on the N=3 hex config.
 
 The reference attains machine-zero `rhstest` in native Float64
-(dg2D_euler_tri.jl:177-183).  Round 2 proved the production f32 TPU
-RHS carries ~1.5e-5 of genuine flux-level roundoff (the diagnostic
-itself was exonerated by the compensated study); this driver closes the
-acceptance by evaluating the RHS in double-float on-chip:
+(dg2D_euler_tri.jl:177-183).  The f32 RHS carries genuine flux-level
+roundoff (the diagnostic itself is exonerated by the compensated
+study); this driver evaluates the RHS in double-float arithmetic:
 
-    python examples/entropy_residual_df64.py          # TPU or CPU
+    python examples/entropy_residual_df64.py
 
-It prints the f32 fused residual, the df64 residual, and the measured
-df64 cost multiple.  Acceptance: |rhstest_df64| <= 1e-10 with
-dissipation off (VERDICT round-2 item 1).  Results recorded in
-PARITY.md.
+It prints the f32 residual, the df64 residual, and the measured df64
+cost multiple.  Acceptance: |rhstest_df64| <= 1e-10 with dissipation
+off.  A backend that breaks the error-free transformations makes the
+df64 builder raise; native float64 (JAX_ENABLE_X64=1) is then the
+check.
 """
 
 import os
@@ -20,20 +20,12 @@ import time
 
 os.environ.setdefault("JAX_ENABLE_X64", "0")
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import common  # noqa: F401  (repo path + compile cache)
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "..", ".jax_cache")
-try:
-    jax.config.update("jax_compilation_cache_dir", _CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from esdg_cns_tpu.presets import euler_hex_3d
 from esdg_cns_tpu.solvers.euler_df64 import make_euler_rhs_df64
@@ -56,24 +48,17 @@ def main():
     npts = disc.nq * disc.num_elements
     print(f"N={n}, K={disc.num_elements} ({npts/1e6:.2f}M quad points)")
 
-    # --- f32 fused production RHS residual (the number to beat) ---
-    from esdg_cns_tpu.solvers.euler_fused import make_euler_rhs_fused
+    # --- f32 production RHS residual (the number to beat) ---
     from esdg_cns_tpu.solvers import make_euler_rhs
 
-    if platform == "tpu":
-        rhs_f32 = make_euler_rhs_fused(disc, dissipation=False,
-                                       compute_rhstest=True,
-                                       rhstest_mode="compensated")
-    else:
-        rhs_f32 = make_euler_rhs(disc, dissipation=False,
-                                 flux_diff_impl="lines",
-                                 rhstest_mode="compensated")
+    rhs_f32 = make_euler_rhs(disc, dissipation=False,
+                             flux_diff_impl="lines",
+                             rhstest_mode="compensated")
     reps = int(os.environ.get("DF64_TIMING_REPS", 20))
 
     def time_rhs(fn):
         """ms per RHS with `reps` applications amortized inside ONE jit
-        (per-call dispatch latency is ~30 ms in this environment and
-        would otherwise dominate both numbers)."""
+        (so per-call dispatch latency does not dominate)."""
 
         @jax.jit
         def loop(q):

@@ -1,4 +1,4 @@
-"""Measure the f32 TPU entropy residual vs rhstest accumulation mode.
+"""Measure the f32 entropy residual vs rhstest accumulation mode.
 
 The ES-DG scheme is exactly entropy-conservative (dissipation off) in
 exact arithmetic; in f32 the reported residual mixes (a) the genuine
@@ -9,10 +9,9 @@ entirely, so its reading IS (a).  It also times the RHS with the
 diagnostic off/native/compensated to bound the knob's cost.
 
 Reference analogue: the rhstest printout of dg3D_euler_hex.jl:214-226
-(Float64 throughout, so (b) never mattered there).  VERDICT.md round-1
-item 9; measured numbers recorded in PARITY.md.
+(Float64 throughout, so (b) never mattered there).
 
-Run on TPU:  python examples/entropy_residual_study.py
+    python examples/entropy_residual_study.py
 """
 
 import os
@@ -21,20 +20,20 @@ import time
 
 os.environ.setdefault("JAX_ENABLE_X64", "0")
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import common  # noqa: F401  (repo path + compile cache)
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-_CACHE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 from esdg_cns_tpu.presets import euler_hex_3d
-from esdg_cns_tpu.solvers.euler_fused import make_euler_rhs_fused
+from esdg_cns_tpu.solvers import make_euler_rhs
+
+
+def make_rhs(disc, **kw):
+    return make_euler_rhs(disc, flux_diff_impl="lines", **kw)
 
 
 def main():
@@ -55,7 +54,7 @@ def main():
 
     # --- residual readings (dissipation off => exact-arithmetic zero) ---
     for mode in ("native", "compensated"):
-        rhs = make_euler_rhs_fused(
+        rhs = make_rhs(
             disc, dissipation=False, compute_rhstest=True, rhstest_mode=mode
         )
         _, aux = jax.jit(rhs)(q)
@@ -82,10 +81,10 @@ def main():
         print(f"rhs loop [{tag:>11s}]: {best / steps * 1e3:.3f} ms/stage")
         return best
 
-    base = timed("off", make_euler_rhs_fused(
+    base = timed("off", make_rhs(
         disc, dissipation=False, compute_rhstest=False))
     for mode in ("native", "compensated"):
-        t = timed(mode, make_euler_rhs_fused(
+        t = timed(mode, make_rhs(
             disc, dissipation=False, compute_rhstest=True,
             rhstest_mode=mode))
         print(f"  overhead vs diagnostic-off: {100 * (t / base - 1):+.1f}%")

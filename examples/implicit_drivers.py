@@ -36,7 +36,8 @@ def main():
         q0 = 0.5 * jnp.sin(jnp.pi * disc.x[0])[None]
 
         def entropy(q):
-            qq = jnp.einsum("ij,fjk->fik", disc.vq, q)
+            qq = jnp.einsum("ij,fjk->fik", disc.vq, q,
+                            precision=jax.lax.Precision.HIGHEST)
             return float(jnp.sum(disc.wjq[None] * qq * qq) / 2)
     else:
         base = make_euler_rhs(disc, dissipation=True, compute_rhstest=False)
@@ -50,7 +51,8 @@ def main():
         )
 
         def entropy(q):
-            s = entropy_fun(jnp.einsum("ij,fjk->fik", disc.vq, q))
+            s = entropy_fun(jnp.einsum("ij,fjk->fik", disc.vq, q,
+                                       precision=jax.lax.Precision.HIGHEST))
             return float(jnp.sum(disc.wjq * s))
 
     qf, aux = jax.jit(lambda q: implicit_midpoint(rhs, q, dt, steps))(q0)

@@ -43,7 +43,8 @@ def main():
             inviscid_dissipation=True, viscous_dissipation=True,
             compute_rhstest=False))
         qf, _ = lsrk45(rhs, q0, dt, steps)
-        uq = jnp.einsum("ij,fjk->fik", disc.vq, qf)
+        uq = jnp.einsum("ij,fjk->fik", disc.vq, qf,
+                        precision=jax.lax.Precision.HIGHEST)
         return jnp.sum(disc.wjq * 0.5 * (uq[1] ** 2 + uq[2] ** 2) / uq[0])
 
     val, grad = jax.jit(jax.value_and_grad(kinetic_energy_after))(re0)

@@ -16,18 +16,6 @@ import time
 
 from common import env_float, env_int
 
-import jax
-
-try:
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
-
 from esdg_cns_tpu.verification import wall_bc_convergence_study
 
 _DISSIPATION_CASES = {

@@ -59,3 +59,16 @@ def test_run_euler_hex_tiny(capsys):
                         .split()[0]))
     assert rhstest < 1e-4
     assert "GDOF*stage/s" in text
+
+
+@pytest.mark.parametrize("backend,accepted", [
+    ("cpu", True), ("gpu", True), ("cuda", False), ("metal", False)])
+def test_backend_choices(backend, accepted):
+    """--backend names exactly the platforms the program runs on: the
+    host CPU (tests, references) and the GPU."""
+    argv = ["run", "cavity", "--backend", backend]
+    if accepted:
+        assert build_parser().parse_args(argv).backend == backend
+    else:
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(argv)

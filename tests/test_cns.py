@@ -151,7 +151,7 @@ def test_dopri45_nan_bailout():
 
 def test_global_conservation():
     """Pin the comm-avoiding exchange's conservation behavior
-    (docs/design.md known deviations; ADVICE r3): on a periodic mesh the
+    (docs/design.md known deviations): on a periodic mesh the
     domain integral of the RHS of every conservative field is zero up to
     roundoff (interface fluxes and LF penalties cancel to the round-trip
     precision of the flux-variable exchange), and multi-step LSRK45 mass
@@ -199,12 +199,11 @@ def test_global_conservation():
 
 
 def test_cavity_centerline_regression():
-    """Reduced-scale pin of the flagship cavity's steady-field observable
-    (VERDICT r3 item 1): N=2, K1D=4, Re=100 isothermal cavity to T=2 with
+    """Reduced-scale pin of the flagship cavity's steady-field observable:
+    N=2, K1D=4, Re=100 isothermal cavity to T=2 with
     adaptive DOPRI45 on the affine composed path; the x=0 / y=0
     centerline velocity profiles must reproduce the stored values (CPU
-    f64 golden, generated by this exact configuration; the full-scale
-    T=100 Re=1000 TPU run lives in results/cavity_T100_r04.json).
+    f64 golden, generated by this exact configuration).
     """
     from esdg_cns_tpu.solvers import make_cns_rhs_affine
     from esdg_cns_tpu.utils.postprocess import extract_line
@@ -245,7 +244,7 @@ def test_grad_through_solver_re_sensitivity():
     full CNS cavity RHS, wall BCs and viscous terms included) gives
     dJ/dRe of a kinetic-energy functional matching central finite
     differences to ~1e-5, and jax.checkpoint (rematerialization, the
-    TPU memory/recompute trade) leaves the gradient bit-compatible."""
+    memory/recompute trade) leaves the gradient bit-compatible."""
     from esdg_cns_tpu.timestepping import lsrk45
 
     disc, q0, bc, p = lid_driven_cavity(n=2, k1d=4)

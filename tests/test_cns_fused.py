@@ -34,22 +34,20 @@ def test_affine_matches_reference_path(cfg):
     flags = dict(bc=bc, inviscid_dissipation=True, viscous_dissipation=True,
                  **kw)
     dq_a, aux_a = jax.jit(make_cns_rhs(disc, **flags))(q, 0.0)
-    for variant in (dict(), dict(volume_impl="fused", interpret=True)):
-        dq_b, aux_b = jax.jit(make_cns_rhs_affine(disc, **flags,
-                                                  **variant))(q, 0.0)
-        scale = float(jnp.abs(dq_a).max())
-        assert float(jnp.abs(dq_a - dq_b).max()) < 1e-10 * scale, variant
-        for key in ("rhstest", "rhstest_visc", "rhstest_visc_total"):
-            va, vb = float(aux_a[key]), float(aux_b[key])
-            assert abs(va - vb) < 1e-9 * max(abs(va), 1.0), (key, va, vb)
+    dq_b, aux_b = jax.jit(make_cns_rhs_affine(disc, **flags))(q, 0.0)
+    scale = float(jnp.abs(dq_a).max())
+    assert float(jnp.abs(dq_a - dq_b).max()) < 1e-10 * scale
+    for key in ("rhstest", "rhstest_visc", "rhstest_visc_total"):
+        va, vb = float(aux_a[key]), float(aux_b[key])
+        assert abs(va - vb) < 1e-9 * max(abs(va), 1.0), (key, va, vb)
 
 
 @pytest.mark.parametrize("n", [2, 4])
-def test_fused_hex_matches_xla_3d_cavity(n):
-    """volume_impl='fused_hex' (inviscid volume via the Euler collocated
-    hex kernel, Pq = I viscous front end) == the xla affine path on the
-    3D cavity, wall BCs and dissipation on.  n=4 exercises the split
-    volume branch (wide lane blocks, PARITY round 3)."""
+def test_lines_matches_xla_3d_cavity(n):
+    """The 3D cavity's production volume stage (line-sparse flux
+    differencing on collocated hexes) == the dense all-pairs 'xla'
+    contraction through the same affine builder, wall BCs and both
+    dissipations on (n=4 is the misaligned-order case)."""
     from esdg_cns_tpu.presets import lid_driven_cavity_3d
 
     disc, q0, bc, p = lid_driven_cavity_3d(n=n, k1d=2)
@@ -58,61 +56,29 @@ def test_fused_hex_matches_xla_3d_cavity(n):
         * jnp.asarray([1.0, 0.1, 0.1, 0.1, 1.0])[:, None, None]
     flags = dict(bc=bc, mu=p["mu"], pr=p["pr"], re=p["re"],
                  inviscid_dissipation=True, viscous_dissipation=True)
-    dq_a, aux_a = jax.jit(make_cns_rhs_affine(disc, **flags))(q, 0.0)
+    dq_a, aux_a = jax.jit(make_cns_rhs_affine(
+        disc, **flags, flux_diff_impl="xla"))(q, 0.0)
     dq_b, aux_b = jax.jit(make_cns_rhs_affine(
-        disc, **flags, volume_impl="fused_hex", interpret=True))(q, 0.0)
+        disc, **flags, flux_diff_impl="lines"))(q, 0.0)
     scale = float(jnp.abs(dq_a).max())
-    # vuq rides raw v(U) instead of (Vq Pq) v(U): identical up to the
-    # setup-time roundoff of Vq Pq = I on the collocated element
-    assert float(jnp.abs(dq_a - dq_b).max()) < 1e-9 * scale
+    assert float(jnp.abs(dq_a - dq_b).max()) < 1e-10 * scale
     for key in ("rhstest", "rhstest_visc", "rhstest_visc_total"):
         va, vb = float(aux_a[key]), float(aux_b[key])
-        assert abs(va - vb) < 1e-8 * max(abs(va), 1.0), (key, va, vb)
+        assert abs(va - vb) < 1e-9 * max(abs(va), 1.0), (key, va, vb)
 
 
-def test_viscous_impl_fused_matches_xla():
-    """viscous_impl='fused' (ONE Pallas kernel for front GEMM,
-    gradients, K(v), stress traces, divergence and the
-    entropy-production partials — ops.pallas_viscous) == the XLA
-    mid-section, wall BCs and both dissipations on, 2D tri and 3D hex."""
-    from esdg_cns_tpu.presets import lid_driven_cavity_3d
-
-    cases = [("fused", lid_driven_cavity(n=3, k1d=4)),
-             ("fused_hex", lid_driven_cavity_3d(n=2, k1d=3))]
-    for vol, (disc, q0, bc, p) in cases:
-        rng = np.random.default_rng(2)
-        q = q0 + 5e-4 * jnp.asarray(rng.standard_normal(q0.shape)) \
-            * jnp.asarray([1.0] + [0.1] * disc.dim + [1.0])[:, None, None]
-        flags = dict(bc=bc, mu=p["mu"], pr=p["pr"], re=p["re"],
-                     inviscid_dissipation=True, viscous_dissipation=True,
-                     volume_impl=vol, interpret=True)
-        dq_a, aux_a = jax.jit(make_cns_rhs_affine(
-            disc, **flags, viscous_impl="xla"))(q, 0.0)
-        dq_b, aux_b = jax.jit(make_cns_rhs_affine(
-            disc, **flags, viscous_impl="fused"))(q, 0.0)
-        scale = float(jnp.abs(dq_a).max())
-        assert float(jnp.abs(dq_a - dq_b).max()) < 1e-12 * scale, vol
-        for key in ("rhstest", "rhstest_visc", "rhstest_visc_total"):
-            va, vb = float(aux_a[key]), float(aux_b[key])
-            assert abs(va - vb) < 1e-10 * max(abs(va), 1.0), (vol, key)
-
-
-def test_viscous_impl_fused_requires_fused_volume():
+def test_removed_kernel_options_raise():
+    """The removed kernel selectors are gone: passing one is an error, never
+    a silent fallback."""
     disc, _, bc, p = lid_driven_cavity(n=2, k1d=2)
-    with pytest.raises(ValueError):
-        make_cns_rhs_affine(disc, mu=p["mu"], pr=p["pr"], re=p["re"],
-                            bc=bc, volume_impl="xla", viscous_impl="fused")
-    with pytest.raises(ValueError):
-        make_cns_rhs_affine(disc, mu=p["mu"], pr=p["pr"], re=p["re"],
-                            bc=bc, volume_impl="fused",
-                            rhstest_mode="compensated",
-                            viscous_impl="fused")
-
-
-def test_fused_hex_requires_collocated_hex():
-    disc, _, _, p = lid_driven_cavity(n=2, k1d=2)
-    with pytest.raises(ValueError):
-        make_cns_rhs_affine(disc, mu=p["mu"], volume_impl="fused_hex")
+    kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc)
+    for opt in (dict(volume_impl="fused"), dict(viscous_impl="fused"),
+                dict(surface_impl="merged"), dict(interpret=True)):
+        with pytest.raises(TypeError):
+            make_cns_rhs_affine(disc, **kw, **opt)
+    for impl in ("pallas", "lines_pallas", "fused"):
+        with pytest.raises(ValueError):
+            make_cns_rhs_affine(disc, **kw, flux_diff_impl=impl)
 
 
 def test_affine_requires_affine_mesh():
@@ -149,19 +115,13 @@ def test_affine_entropy_stability_cavity():
 
 @pytest.mark.parametrize("case", ["adiabatic", "isothermal", "slip",
                                   "lid_profile", "dirichlet", "nobc",
-                                  "padded"])
-def test_fused_surface_matches_xla(case):
-    """surface_impl='fused' (ops.pallas_cns_surface: BC ghosts, EC face
-    flux + LF, entropy-variable BC, penalty rows in ONE kernel) and
-    surface_impl='merged' (that section + the viscous mid-section in
-    ONE kernel, ops.pallas_viscous.cns_surface_viscous_pallas) == the
-    XLA surface section, to roundoff, across every BC shape: the three
-    wall kinds, an ARRAY lid profile (u_wall rows ride the kernel
-    pool), time-dependent Dirichlet ghosts (pre-evaluated outside the
-    kernel), no BC at all, and a lane-padded block split (block_k does
-    not divide K)."""
+                                  "hex3d"])
+def test_affine_matches_generic_bc_cases(case):
+    """The composed-operator affine RHS == the generic make_cns_rhs, to
+    roundoff, across every BC shape: the three wall kinds, an ARRAY lid
+    profile, time-dependent Dirichlet ghosts, no BC at all, and the 3D
+    collocated-hex cavity."""
     t = 0.0
-    block_k = None
     if case == "dirichlet":
         disc, q0, bc, shock = becker_shocktube_2d(
             n=2, k1d=3, shock=BeckerShock(mu=0.1))
@@ -179,56 +139,26 @@ def test_fused_surface_matches_xla(case):
                                             bctype="isothermal",
                                             lid_profile=regularized_lid)
         kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"])
-    else:
-        disc, q0, bc, p = lid_driven_cavity(
-            n=2, k1d=3, bctype="adiabatic" if case == "padded" else case)
+    elif case == "hex3d":
+        from esdg_cns_tpu.presets import lid_driven_cavity_3d
+
+        disc, q0, bc, p = lid_driven_cavity_3d(n=2, k1d=2)
         kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"])
-        if case == "padded":
-            block_k = 16   # K = 18: forces the lane-padding path
+    else:
+        disc, q0, bc, p = lid_driven_cavity(n=2, k1d=3, bctype=case)
+        kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"])
     rng = np.random.default_rng(3)
     q = q0 * (1.0 + 0.01 * jnp.asarray(rng.standard_normal(q0.shape)))
     flags = dict(bc=bc, inviscid_dissipation=True,
-                 viscous_dissipation=True, compute_rhstest=False, **kw)
-    out = {}
-    for simpl in ("xla", "fused", "merged", "merged_tail"):
-        rhs = make_cns_rhs_affine(
-            disc, volume_impl="fused", viscous_impl="fused",
-            surface_impl=simpl, interpret=True,
-            **({} if block_k is None else {"block_k": block_k}), **flags)
-        dq, aux = jax.jit(rhs, static_argnums=())(q, t)
-        out[simpl] = (np.asarray(dq), float(aux["rhstest_visc"]))
-    scale = np.abs(out["xla"][0]).max()
-    for simpl in ("fused", "merged", "merged_tail"):
-        d = np.abs(out[simpl][0] - out["xla"][0]).max()
-        assert d < 1e-11 * scale, (case, simpl, d, scale)
-        assert abs(out[simpl][1] - out["xla"][1]) < 1e-9 * max(
-            abs(out["xla"][1]), 1.0), (case, simpl)
-
-
-def test_merged_surface_hex_matches_xla():
-    """surface_impl='merged' on the collocated-hex path (proj=False:
-    the viscous front end is gradient-rows-only and vuq is the raw
-    v(U)) == the XLA surface section, to roundoff."""
-    from esdg_cns_tpu.presets import lid_driven_cavity_3d
-
-    disc, q0, bc, p = lid_driven_cavity_3d(n=2, k1d=2)
-    rng = np.random.default_rng(5)
-    q = q0 * (1.0 + 0.01 * jnp.asarray(rng.standard_normal(q0.shape)))
-    kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
-              inviscid_dissipation=True, viscous_dissipation=True,
-              volume_impl="fused_hex", interpret=True)
-    out = {}
-    for simpl in ("xla", "merged", "merged_tail"):
-        rhs = make_cns_rhs_affine(disc, surface_impl=simpl,
-                                  compute_rhstest=False, **kw)
-        dq, aux = jax.jit(rhs)(q, 0.0)
-        out[simpl] = (np.asarray(dq), float(aux["rhstest_visc"]))
-    s = np.abs(out["xla"][0]).max()
-    for simpl in ("merged", "merged_tail"):
-        d = np.abs(out[simpl][0] - out["xla"][0]).max()
-        assert d < 1e-11 * s, (simpl, d, s)
-        assert abs(out[simpl][1] - out["xla"][1]) < 1e-9 * max(
-            abs(out["xla"][1]), 1.0), simpl
+                 viscous_dissipation=True, **kw)
+    dq_g, aux_g = jax.jit(make_cns_rhs(disc, **flags))(q, t)
+    dq_a, aux_a = jax.jit(make_cns_rhs_affine(disc, **flags))(q, t)
+    scale = float(jnp.abs(dq_g).max())
+    d = float(jnp.abs(dq_a - dq_g).max())
+    assert d < 1e-10 * scale, (case, d, scale)
+    for key in ("rhstest", "rhstest_visc", "rhstest_visc_total"):
+        va, vb = float(aux_g[key]), float(aux_a[key])
+        assert abs(va - vb) < 1e-9 * max(abs(va), 1.0), (case, key, va, vb)
 
 
 def test_rebuilt_jump_bitwise_antisymmetric():
@@ -272,29 +202,6 @@ def test_rebuilt_jump_bitwise_antisymmetric():
     # bitwise: the gathered jump IS the negated jump, no tolerance
     np.testing.assert_array_equal(np.asarray(gather(dv)), np.asarray(-dv))
     np.testing.assert_array_equal(np.asarray(gather(du)), np.asarray(-du))
-
-
-@pytest.mark.parametrize("fd_mode", ["tri8", "full"])
-def test_fd_mode_variants_match(fd_mode):
-    """The study-only flux-differencing layouts ('tri8' sublane-padded
-    triangular, 'full' all-pairs) are algebraically identical to the
-    default triangular unroll; pin the contract so edits to
-    ec_flux_fields or the skew-operator layout can't silently break
-    the dispatchable-but-otherwise-unused variants
-    (ops/pallas_fd.triangular_fd8 / full_fd)."""
-    disc, q0, bc, p = lid_driven_cavity(n=3, k1d=4)
-    rng = np.random.default_rng(3)
-    q = q0 + 5e-4 * jnp.asarray(rng.standard_normal(q0.shape)) \
-        * jnp.asarray([1.0, 0.1, 0.1, 1.0])[:, None, None]
-    flags = dict(bc=bc, mu=p["mu"], pr=p["pr"], re=p["re"],
-                 inviscid_dissipation=True, viscous_dissipation=True,
-                 volume_impl="fused", interpret=True)
-    dq_ref, _ = jax.jit(make_cns_rhs_affine(disc, **flags))(q, 0.0)
-    dq_v, _ = jax.jit(make_cns_rhs_affine(disc, **flags,
-                                          fd_mode=fd_mode))(q, 0.0)
-    scale = float(jnp.abs(dq_ref).max())
-    # f64 reassociation roundoff only (measured ~3e-13 relative)
-    assert float(jnp.abs(dq_ref - dq_v).max()) < 1e-11 * scale
 
 
 def test_natural_boundary_traction_on_self_mapped_faces():

@@ -1,7 +1,7 @@
 """Compensated entropy-residual reduction (utils.compensated).
 
-VERDICT.md round-1 item 9: the f32 TPU entropy residual was dominated
-by diagnostic accumulation roundoff with no tighter option.  These
+A native f32 entropy residual is dominated by the diagnostic's own
+accumulation roundoff.  These
 tests pin the double-float Dot2 reduction to f64 ground truth and wire
 it through the RHS builders' rhstest_mode knob.
 """

@@ -1,8 +1,8 @@
 """Double-float (df64) arithmetic and the df64 verification RHS.
 
 The acceptance this backs: the reference reaches machine-zero entropy
-residuals in native Float64 (dg2D_euler_tri.jl:177-183); on TPU (no
-hardware f64) the df64 RHS must reproduce that.  These tests run the
+residuals in native Float64 (dg2D_euler_tri.jl:177-183); in f32 state
+arithmetic the df64 RHS must reproduce that.  These tests run the
 SAME f32-pair arithmetic on CPU (conftest pins --xla_cpu_max_isa=AVX so
 x86 FMA contraction cannot destroy the error-free transforms) and
 check it against true f64.
@@ -79,7 +79,7 @@ def test_logmean_df_matches_f64():
 def test_df64_rhs_matches_f64(dissipation):
     """The full df64 collocated-hex RHS agrees with the true-f64 RHS at
     the same f32 state, and its entropy residual is at the f64 level —
-    the on-chip acceptance semantics (VERDICT round-2 item 1)."""
+    the double-float acceptance semantics."""
     from esdg_cns_tpu.presets import euler_hex_3d
     from esdg_cns_tpu.solvers import make_euler_rhs
     from esdg_cns_tpu.solvers.euler_df64 import make_euler_rhs_df64

@@ -1,5 +1,5 @@
-"""Flux-differencing kernel equivalence: the fused Pallas kernel
-(interpret mode on CPU) must match the portable XLA all-pairs path to
+"""Flux-differencing equivalence: the line-sparse paths used on
+collocated hexes/quads must match the dense XLA all-pairs contraction to
 machine precision, on both affine and curved-geofac meshes."""
 
 import jax
@@ -7,10 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from esdg_cns_tpu.core import build_discretization, ref_hex
-from esdg_cns_tpu.mesh import uniform_hex_mesh
 from esdg_cns_tpu.ops.flux_differencing import flux_differencing_xla
-from esdg_cns_tpu.ops.pallas_fd import flux_differencing_pallas
 from esdg_cns_tpu.physics import betafun, primitive_to_conservative
 from esdg_cns_tpu.solvers.euler import entropy_projection
 
@@ -29,245 +26,61 @@ def _qh_inputs(disc, seed=0):
     return qh, qlog
 
 
-@pytest.mark.parametrize("curved", [False, True])
-def test_pallas_matches_xla_hex(curved):
-    vx, vy, vz, etov = uniform_hex_mesh(1, 1, 2)
-    warp = None
-    if curved:
-        def warp(x, y, z):
-            return x + 0.08 * (x - 1) * (x + 1) * (y - 1) * (y + 1), y, z
-    disc = build_discretization(ref_hex(1), (vx, vy, vz), etov, curved_map=warp)
-    qh, qlog = _qh_inputs(disc)
-    a = flux_differencing_xla(qh, qlog, disc.q_skew, disc.geo, 1.4)
-    b = flux_differencing_pallas(
-        qh, qlog, disc.q_skew, disc.geo, 1.4, nq=disc.nq, block_k=4, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-11, atol=1e-11)
-
-
-def test_fused_volume_kernel_matches_reference():
-    """Fused Pallas volume stage (interpret mode) == projection + line
-    flux differencing + Ph, on affine and curved hexes."""
-    import jax
-
-    from esdg_cns_tpu.ops.pallas_volume import euler_volume_pallas
+@pytest.mark.parametrize("curved", [False, True], ids=["affine", "curved"])
+@pytest.mark.parametrize("n", [2, 3, 4, 5])
+def test_lines_matches_dense_xla_hex(n, curved):
+    """The line-sparse flux differencing (the hex production path) is
+    the dense all-pairs contraction with the Kronecker-zero pairs
+    skipped: equal to roundoff in f64 at every order, affine and
+    curved (pointwise-averaged geofacs)."""
     from esdg_cns_tpu.ops.tensor_product_fd import flux_differencing_lines
-    from esdg_cns_tpu.physics import betafun as _betafun
     from esdg_cns_tpu.presets import euler_hex_3d
 
-    for curved in (False, True):
-        disc, q0 = euler_hex_3d(n=2, k1d=2, curved=curved,
-                                dtype=jnp.float32)
-        nq = disc.nq
-        ph_qf, traces = euler_volume_pallas(
-            q0, disc.geo, disc.vhp[nq:], disc.lift, 1.4,
-            nq=nq, line_ops=disc.line_ops, block_k=8, interpret=True,
-        )
-        from esdg_cns_tpu.solvers.euler import _apply, entropy_projection
-
-        vu, uh = entropy_projection(disc, q0, 1.4)
-        qh = jnp.concatenate(
-            [uh[0][None], uh[1:-1] / uh[0], _betafun(uh)[None]], axis=0
-        )
-        qlog = jnp.stack([jnp.log(qh[0]), jnp.log(qh[-1])])
-        qf = flux_differencing_lines(qh, qlog, disc.geo, 1.4,
-                                     elem_type="hex",
-                                     line_ops=disc.line_ops, nq=nq)
-        ref = _apply(disc.ph, qf)
-        np.testing.assert_allclose(np.asarray(ph_qf), np.asarray(ref),
-                                   rtol=2e-4, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(traces[:5]),
-                                   np.asarray(qh[:, nq:, :]),
-                                   rtol=1e-4, atol=1e-5)
-
-
-def test_fused_rhs_matches_lines_cpu():
-    import esdg_cns_tpu.ops.pallas_volume as pv
-    import esdg_cns_tpu.solvers.euler_fused as ef_mod
-    from esdg_cns_tpu.presets import euler_hex_3d
-    from esdg_cns_tpu.solvers import make_euler_rhs
-
-    orig = pv.euler_volume_pallas
-    orig_s = pv.euler_surface_pallas
-
-    def interp(*a, **kw):
-        kw["interpret"] = True
-        return orig(*a, **kw)
-
-    def interp_s(*a, **kw):
-        kw["interpret"] = True
-        return orig_s(*a, **kw)
-
-    ef_mod.euler_volume_pallas = interp
-    ef_mod.euler_surface_pallas = interp_s
-    try:
-        disc, q0 = euler_hex_3d(n=2, k1d=2, dtype=jnp.float32)
-        a, _ = make_euler_rhs(disc, dissipation=True,
-                              flux_diff_impl="lines",
-                              compute_rhstest=False)(q0)
-        b, _ = ef_mod.make_euler_rhs_fused(disc, dissipation=True,
-                                           block_k=8)(q0)
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=1e-3, atol=1e-3)
-    finally:
-        ef_mod.euler_volume_pallas = orig
-        ef_mod.euler_surface_pallas = orig_s
-
-
-def test_fused_rhs_free_stream_cpu():
-    """Fused path preserves a constant state on a curved hex mesh."""
-    import esdg_cns_tpu.ops.pallas_volume as pv
-    import esdg_cns_tpu.solvers.euler_fused as ef_mod
-    from esdg_cns_tpu.physics import primitive_to_conservative
-    from esdg_cns_tpu.presets import euler_hex_3d
-
-    orig_v, orig_s = pv.euler_volume_pallas, pv.euler_surface_pallas
-    ef_mod.euler_volume_pallas = lambda *a, **k: orig_v(*a, **{**k, "interpret": True})
-    ef_mod.euler_surface_pallas = lambda *a, **k: orig_s(*a, **{**k, "interpret": True})
-    try:
-        disc, _ = euler_hex_3d(n=2, k1d=2, curved=True, dtype=jnp.float32)
-        sh = (disc.np_, disc.num_elements)
-        q = primitive_to_conservative(
-            jnp.full(sh, 1.3), jnp.stack([jnp.full(sh, 0.2),
-                                          jnp.full(sh, -0.1),
-                                          jnp.full(sh, 0.4)]),
-            jnp.full(sh, 0.9),
-        ).astype(jnp.float32)
-        dq, _ = ef_mod.make_euler_rhs_fused(disc, dissipation=True,
-                                            block_k=8)(q)
-        assert float(jnp.abs(dq).max()) < 5e-4  # f32, amplified by 1/J
-    finally:
-        ef_mod.euler_volume_pallas = orig_v
-        ef_mod.euler_surface_pallas = orig_s
-
-
-@pytest.mark.parametrize("mode", ["joint", "split", "split_dense",
-                                  "split_pad8", "joint_pad8",
-                                  "joint_packed"])
-def test_fused_rhs_matches_lines_n4_f64(mode):
-    """The fused kernels are correct at N=4 too (f64, interpret mode):
-    all three volume_mode variants (joint all-in-one kernel, split
-    per-direction triangular kernels, split dense flat-partner kernels)
-    must agree with the XLA lines path to roundoff."""
-    from esdg_cns_tpu.presets import euler_hex_3d
-    from esdg_cns_tpu.solvers import make_euler_rhs
-    from esdg_cns_tpu.solvers.euler_fused import make_euler_rhs_fused
-
-    disc, q0 = euler_hex_3d(n=4, k1d=2)
-    a, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
-                          compute_rhstest=False)(q0)
-    b, _ = make_euler_rhs_fused(disc, dissipation=True, force_fused=True,
-                                interpret=True, volume_mode=mode)(q0)
-    scale = float(jnp.abs(jnp.asarray(a)).max())
+    disc, _ = euler_hex_3d(n=n, k1d=2, curved=curved)
+    assert disc.affine is not curved
+    qh, qlog = _qh_inputs(disc, seed=n)
+    a = flux_differencing_xla(qh, qlog, disc.q_skew, disc.geo, 1.4)
+    b = flux_differencing_lines(qh, qlog, disc.geo, 1.4, elem_type="hex",
+                                line_ops=disc.line_ops, nq=disc.nq)
+    scale = float(jnp.abs(a).max())
     np.testing.assert_allclose(np.asarray(b) / scale, np.asarray(a) / scale,
-                               rtol=1e-11, atol=1e-11)
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_snap_detect_contract():
-    """The detection/snap invariant the diag kernels rely on: any mesh
-    detect_axis_aligned accepts carries EXACT zeros in every entry the
-    kernels statically drop (off-diagonal metrics, off-group normal
-    components) — detection's tolerance matches the setup snap gate,
-    so the specialization is never an approximation.  The snap itself
-    must not touch curved metrics (their curl-form GCL is an exact
-    nodal identity)."""
-    from esdg_cns_tpu.ops.pallas_volume import (default_block_k,
-                                                detect_axis_aligned)
+    """The setup snap invariant: on an axis-aligned affine hex mesh the
+    off-diagonal metric entries and the off-axis normal components are
+    EXACT zeros, also at the bench-scale meshes (the curl-form setup
+    noise is absolute, so its relative size grows as the metric shrinks
+    with k1d; the snap gate is relative 1e-9).  Curved metrics are never
+    snapped (their curl-form GCL is an exact nodal identity), so free
+    stream is preserved there (tests/test_euler_rhs.py)."""
     from esdg_cns_tpu.presets import euler_hex_3d
 
-    disc, _ = euler_hex_3d(n=3, k1d=2)
-    assert detect_axis_aligned(disc)
-    # the BENCH-SCALE meshes must be detected too: the curl-form setup
-    # noise is ABSOLUTE, so its relative size grows as the metric
-    # shrinks with k1d — the old 1e-11 snap gate silently failed at
-    # k1d >= 24 and the bench ran the general contraction (round 5)
-    for n_, k1d_ in ((3, 32), (4, 24)):
-        disc_b, _ = euler_hex_3d(n=n_, k1d=k1d_)
-        assert detect_axis_aligned(disc_b), (n_, k1d_)
-    geo = np.asarray(disc.geo)
-    for d in range(3):
-        for x in range(3):
-            if x != d:
-                assert np.all(geo[d * 3 + x] == 0.0)
-    nxj = np.stack([np.asarray(a) for a in disc.nxj])
-    nfp = nxj.shape[1] // 6
-    for fid in range(6):
-        rows = slice(fid * nfp, (fid + 1) * nfp)
-        for x in range(3):
-            if x != fid // 2:
-                assert np.all(nxj[x, rows] == 0.0)
+    def off_axis_zero(disc):
+        geo = np.asarray(disc.geo)
+        nxj = np.stack([np.asarray(a) for a in disc.nxj])
+        nfp = nxj.shape[1] // 6
+        return (all(np.all(geo[d * 3 + x] == 0.0)
+                    for d in range(3) for x in range(3) if x != d)
+                and all(np.all(nxj[x, f * nfp:(f + 1) * nfp] == 0.0)
+                        for f in range(6) for x in range(3) if x != f // 2))
 
-    # curved meshes are never detected (and their curl-form metrics are
-    # left un-snapped — free-stream preservation on curved hexes is
-    # pinned by test_fused_rhs_free_stream_cpu / test_euler_rhs)
+    for n_, k1d_ in ((3, 2), (3, 32), (4, 24)):
+        disc, _ = euler_hex_3d(n=n_, k1d=k1d_)
+        assert off_axis_zero(disc), (n_, k1d_)
+
     disc_c, _ = euler_hex_3d(n=3, k1d=2, curved=True)
-    assert not detect_axis_aligned(disc_c)
-
-    # lane-block rule: aligned orders narrow, misaligned orders wide
-    assert default_block_k(1) == 128 and default_block_k(3) == 128
-    assert default_block_k(2) == 1024
-    assert default_block_k(4) == 512 and default_block_k(5) == 512
-
-
-@pytest.mark.parametrize("n,mode", [(3, "joint"), (4, "split"),
-                                    (4, "split_pad8"), (4, "joint_pad8"),
-                                    (3, "joint_packed"),
-                                    (4, "joint_packed")])
-def test_fused_diag_specialization(n, mode):
-    """The axis-aligned (diagonal-metric) kernel specialization: on a
-    uniform hex mesh detection engages, and statically dropping the
-    cross-direction flux assembly / metric-contraction terms changes
-    the RHS only at roundoff (the dropped entries are snapped to exact
-    zero at setup, core/discretization._snap).  A curved mesh must NOT
-    be detected as axis-aligned."""
-    from esdg_cns_tpu.ops.pallas_volume import detect_axis_aligned
-    from esdg_cns_tpu.presets import euler_hex_3d
-    from esdg_cns_tpu.solvers import make_euler_rhs
-    from esdg_cns_tpu.solvers.euler_fused import make_euler_rhs_fused
-
-    disc, q0 = euler_hex_3d(n=n, k1d=2)
-    assert detect_axis_aligned(disc)
-    a, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
-                          compute_rhstest=False)(q0)
-    b, _ = make_euler_rhs_fused(disc, dissipation=True, force_fused=True,
-                                interpret=True, volume_mode=mode,
-                                axis_aligned=True)(q0)
-    c, _ = make_euler_rhs_fused(disc, dissipation=True, force_fused=True,
-                                interpret=True, volume_mode=mode,
-                                axis_aligned=False)(q0)
-    scale = float(jnp.abs(jnp.asarray(a)).max())
-    np.testing.assert_allclose(np.asarray(b) / scale, np.asarray(a) / scale,
-                               rtol=1e-11, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(b) / scale, np.asarray(c) / scale,
-                               rtol=1e-13, atol=1e-13)
-
-    disc_c, _ = euler_hex_3d(n=2, k1d=2, curved=True)
-    assert not detect_axis_aligned(disc_c)
-
-
-def test_fused_rhs_matches_lines_n5_f64():
-    """N=5 now defaults to the fused split path (1.57e9 vs lines 6.3e8
-    DOF*stage/s on the v5e, PARITY round 3); correctness vs lines."""
-    from esdg_cns_tpu.presets import euler_hex_3d
-    from esdg_cns_tpu.solvers import make_euler_rhs
-    from esdg_cns_tpu.solvers.euler_fused import make_euler_rhs_fused
-
-    disc, q0 = euler_hex_3d(n=5, k1d=2)
-    a, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
-                          compute_rhstest=False)(q0)
-    b, _ = make_euler_rhs_fused(disc, dissipation=True,
-                                interpret=True)(q0)
-    scale = float(jnp.abs(jnp.asarray(a)).max())
-    np.testing.assert_allclose(np.asarray(b) / scale, np.asarray(a) / scale,
-                               rtol=1e-11, atol=1e-11)
+    assert not disc_c.affine
+    assert not off_axis_zero(disc_c)
 
 
 @pytest.mark.parametrize("impl", ["lines_perm", "lines_rot"])
 @pytest.mark.parametrize("n", [2, 4])
 def test_layout_variants_match_lines_hex(impl, n):
-    """The permutation-form and rotated-layout flux differencing (round-3
-    TPU layout studies) are algebraically the same operator as the
-    reshape-form lines path on hex meshes."""
+    """The permutation-form and rotated-layout flux differencing are
+    algebraically the same operator as the reshape-form lines path on
+    hex meshes."""
     from esdg_cns_tpu.presets import euler_hex_3d
     from esdg_cns_tpu.solvers import make_euler_rhs
 

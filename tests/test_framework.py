@@ -7,6 +7,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from esdg_cns_tpu.config import SimConfig, build_problem, run_simulation
 from esdg_cns_tpu.physics import primitive_to_conservative
@@ -112,15 +113,15 @@ def test_structured_exchange_equivalence():
 
 
 def test_simconfig_cns_volume_impls_agree():
-    """The config-level CNS routing (generic / affine-xla / forced
-    fused-interpreted) produces the same RHS on a periodic tri mesh."""
+    """The config-level CNS routing (generic 'xla' / composed-operator
+    'auto') produces the same RHS on a periodic tri mesh."""
     import jax
     import numpy as np
 
     rng = np.random.default_rng(0)
     q = None
     outs = {}
-    for impl in ("xla", "auto", "fused"):
+    for impl in ("xla", "auto"):
         cfg = SimConfig(equation="cns", elem_type="tri", n=2, k1d=4,
                         periodic=True, reynolds=100.0,
                         cns_volume_impl=impl)
@@ -135,48 +136,65 @@ def test_simconfig_cns_volume_impls_agree():
         dq, _ = jax.jit(rhs)(q, 0.0)
         outs[impl] = np.asarray(dq)
     scale = np.abs(outs["xla"]).max()
-    for impl in ("auto", "fused"):
-        assert np.abs(outs[impl] - outs["xla"]).max() < 1e-10 * scale, impl
+    assert np.abs(outs["auto"] - outs["xla"]).max() < 1e-10 * scale
 
 
-def test_simconfig_cns_fused_hex_routing():
-    """cns_volume_impl='fused_hex' routes collocated hexes through the
-    Euler fused volume kernel (interpreted off-TPU) and agrees with the
-    xla affine path; requesting it on a tri mesh raises."""
-    import jax
-    import numpy as np
-    import pytest
-
-    rng = np.random.default_rng(0)
-    q = None
-    outs = {}
-    for impl in ("xla", "fused_hex"):
-        cfg = SimConfig(equation="cns", elem_type="hex", n=2, k1d=2,
-                        periodic=True, reynolds=100.0,
-                        cns_volume_impl=impl)
-        disc, rhs = build_problem(cfg)
-        if q is None:
-            sh = (disc.np_, disc.num_elements)
-            q = primitive_to_conservative(
-                jnp.asarray(2 + 0.1 * rng.random(sh)),
-                jnp.asarray(0.2 * rng.standard_normal((3, *sh))),
-                jnp.asarray(2 + 0.1 * rng.random(sh)),
-            )
-        dq, _ = jax.jit(rhs)(q, 0.0)
-        outs[impl] = np.asarray(dq)
-    scale = np.abs(outs["xla"]).max()
-    assert np.abs(outs["fused_hex"] - outs["xla"]).max() < 1e-9 * scale
-
+@pytest.mark.parametrize("equation,field,value", [
+    ("euler", "flux_diff_impl", "fused"),
+    ("euler", "flux_diff_impl", "pallas"),
+    ("euler", "flux_diff_impl", "lines_pallas"),
+    ("cns", "cns_volume_impl", "fused"),
+    ("cns", "cns_volume_impl", "fused_hex"),
+])
+def test_simconfig_removed_impls_raise(equation, field, value):
+    """The removed kernel names are gone from the config: each raises at
+    build time instead of routing anywhere."""
+    cfg = SimConfig(equation=equation, elem_type="hex", n=2, k1d=2,
+                    **{field: value})
     with pytest.raises(ValueError):
-        build_problem(SimConfig(equation="cns", elem_type="tri", n=2,
-                                k1d=4, periodic=True, reynolds=100.0,
-                                cns_volume_impl="fused_hex"))
+        build_problem(cfg)
+
+
+def test_simconfig_cns_viscous_impl_removed():
+    with pytest.raises(TypeError):
+        SimConfig(equation="cns", cns_viscous_impl="fused")
+
+
+@pytest.mark.parametrize("case", ["euler_hex", "cns_tri", "cns_hex"])
+def test_simconfig_routes_to_xla_paths(case):
+    """One rule on every platform: build_problem's RHS is exactly the
+    XLA builder the config names (line-sparse flux differencing on
+    collocated hexes, the composed affine CNS operators on affine
+    meshes) — nothing consults the device."""
+    import jax
+
+    from esdg_cns_tpu.solvers import make_cns_rhs_affine, make_euler_rhs
+
+    equation, elem = case.split("_")
+    cfg = SimConfig(equation=equation, elem_type=elem, n=2, k1d=2,
+                    periodic=True, reynolds=100.0)
+    disc, rhs = build_problem(cfg)
+    rng = np.random.default_rng(1)
+    sh = (disc.np_, disc.num_elements)
+    q = primitive_to_conservative(
+        jnp.asarray(2 + 0.1 * rng.random(sh)),
+        jnp.asarray(0.2 * rng.standard_normal((disc.dim, *sh))),
+        jnp.asarray(2 + 0.1 * rng.random(sh)),
+    )
+    if equation == "euler":
+        ref = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines")
+    else:
+        ref = make_cns_rhs_affine(disc, mu=1.0 / 100.0, re=100.0,
+                                  pr=cfg.prandtl, inviscid_dissipation=True,
+                                  flux_diff_impl="auto")
+    np.testing.assert_array_equal(np.asarray(jax.jit(rhs)(q, 0.0)[0]),
+                                  np.asarray(jax.jit(ref)(q, 0.0)[0]))
 
 
 def test_wall_bc_convergence_study_results():
-    """The EXECUTED reference-scale wall-BC convergence study (round 3,
-    VERDICT item 3): N=1..4, K1D=32, Re=100, T=1.0, adiabatic walls,
-    regularized lid (run on one v5e chip in f32, 786 s;
+    """The EXECUTED reference-scale wall-BC convergence study (round 3):
+    N=1..4, K1D=32, Re=100, T=1.0, adiabatic walls,
+    regularized lid (f32;
     examples/wall_bc_convergence.py -> results/wall_bc_errors_r03.json,
     parity with err_arr.txt of dg2D_CNS_convergence_test.jl:840-852).
     The boundary L2 error must decrease monotonically with N in both
@@ -198,17 +216,17 @@ def test_wall_bc_convergence_study_results():
 
 
 def test_wall_bc_convergence_full_matrix_results():
-    """The EXECUTED full reference grid (round 4, VERDICT item 5):
+    """The EXECUTED full reference grid (round 4):
     N=1..4 x all four dissipation combos x Re in {100, 1000} x
-    {adiabatic, isothermal}, K1D=32, T=1 (64 cells, one v5e chip, f32,
-    478 s; examples/wall_bc_convergence.py ->
+    {adiabatic, isothermal}, K1D=32, T=1 (64 cells, f32;
+    examples/wall_bc_convergence.py ->
     results/wall_bc_errors_r04.json; reference sweep
     dg2D_CNS_convergence_test.jl:848-852).
 
     Re-executed after the round-4 self-review fixed the error
     observable's trace interpolation to precision=HIGHEST: the earlier
-    artifact's apparent N=4 "plateau" at ~1.8e-3 was the one-pass bf16
-    MXU floor polluting the measurement, not a property of the scheme —
+    artifact's apparent N=4 "plateau" at ~1.8e-3 was a reduced-precision
+    matmul floor polluting the measurement, not a property of the scheme —
     the corrected Re=100 high-N errors dropped up to 32x (N=4 down to
     5.6e-5) and EVERY group now converges strictly monotonically in N.
     Cross-axis physics: Re=1000 errors exceed Re=100 at every N
@@ -244,8 +262,8 @@ def test_wall_bc_convergence_full_matrix_results():
 
 
 def test_shocktube2d_convergence_results():
-    """EXECUTED 2D viscous-shocktube refinement (round 4, one v5e chip,
-    f32): examples/dg2d_cns_shocktube.py SWEEP=32,64,128 ->
+    """EXECUTED 2D viscous-shocktube refinement (round 4, f32):
+    examples/dg2d_cns_shocktube.py SWEEP=32,64,128 ->
     results/shocktube2d_errors_r04.json at the reference's N=2, T=0.2,
     mu=0.01, M_0=3 Becker configuration (dg2D_CNS_modalESDG.jl:21-27;
     composite relative errors over rho/rhou/E per :765-774).  K1D=128
@@ -268,8 +286,7 @@ def test_shocktube2d_convergence_results():
 
 
 def test_checkpoint_npz_fallback(tmp_path):
-    """The non-orbax path: path-keyed npz with template verification
-    (VERDICT r3 weak item 6)."""
+    """The non-orbax path: path-keyed npz with template verification."""
     import pytest
 
     mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=2,
@@ -313,9 +330,7 @@ def test_launch_helpers():
 
     from esdg_cns_tpu.parallel import launch
 
-    for var in ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-                "MEGASCALE_COORDINATOR_ADDRESS"):
-        os.environ.pop(var, None)
+    os.environ.pop("JAX_COORDINATOR_ADDRESS", None)
     assert launch.maybe_initialize() is False
 
     mesh = launch.make_device_mesh()
@@ -331,50 +346,10 @@ def test_launch_helpers():
         launch.make_device_mesh(shape=(2, 4), axis_names=("e",))
 
 
-def test_cavity_t100_results():
-    """The EXECUTED flagship workload at reference duration (round 4,
-    VERDICT item 1): Re=1000, Ma=0.3 isothermal cavity, N=3, K1D=16,
-    adaptive DOPRI45 to T=100 on one v5e chip (f32, fused affine path)
-    with a real cross-process checkpoint restart at T=50
-    (examples/cavity_t100.py -> results/cavity_T100_r04.json; reference
-    dg2D_CNS_cavity_optimized.jl:21-36 runs the same config to T=100.0).
-    Pins: completion, zero stalls, the restart event, the converged
-    viscous entropy production, and the steady-state centerline
-    velocity extrema (textbook Re~1000 cavity shape).
-    """
-    import json
-    import os
-
-    path = os.path.join(os.path.dirname(__file__), "..", "results",
-                        "cavity_T100_r04.json")
-    with open(path) as f:
-        d = json.load(f)
-    assert d["t_final"] >= 100.0 - 1e-6
-    assert d["n_accepted"] > 20000 and d["n_rejected"] < 100
-    assert len(d["chunks"]) == 100
-    assert d["resume_events"], "no checkpoint restart was exercised"
-    assert 40.0 <= d["resume_events"][0]["t"] <= 60.0
-
-    # steady state: viscous entropy production settled (last two chunks
-    # agree to 0.1%) and strictly positive
-    visc = [c["rhstest_visc"] for c in d["chunks"][-5:]]
-    assert all(v > 0 for v in visc)
-    assert abs(visc[-1] - visc[-2]) < 1e-3 * abs(visc[-1])
-
-    u = np.array(d["centerline"]["u_at_x0"])
-    v = np.array(d["centerline"]["v_at_y0"])
-    # lid-driven cavity at Re=1000: primary vortex with u_min ~ -0.4 on
-    # the vertical centerline, v extrema ~ (-0.55, +0.42)
-    assert -0.50 < u.min() < -0.30, u.min()
-    assert 0.90 < u.max() < 1.10, u.max()
-    assert -0.65 < v.min() < -0.40, v.min()
-    assert 0.30 < v.max() < 0.55, v.max()
-
-
 def test_cavity_profile_convergence_results():
     """The EXECUTED centerline grid-convergence study (round 4):
     Re=1000 cavity steady states at N=3, K1D in {8, 16, 24}, each
-    integrated to T=100 on the TPU
+    integrated to T=100
     (examples/cavity_profile_convergence.py ->
     results/cavity_profiles_r04.json).  Pins: the successive-resolution
     centerline L2 differences SHRINK (the flagship anchor at K1D=16 is
@@ -466,29 +441,6 @@ def test_cavity_ghia_anchor_results():
         assert c["v_rms_dev"] < 1.2e-2, c["v_rms_dev"]
         assert c["u_max_dev"] < 2.5e-2, c["u_max_dev"]
         assert c["v_max_dev"] < 2.5e-2, c["v_max_dev"]
-
-
-def test_ensemble_throughput_results():
-    """The EXECUTED DP-axis measurement (round 4): 8 adaptive cavity
-    solves (Re geomspace 50..800) as one vmapped program vs the best
-    serial baseline (one jitted executable, re traced, called 8x) on
-    the real chip (examples/ensemble_throughput.py ->
-    results/ensemble_throughput_r04.json).  Pins: the batch costs
-    ~one member (small per-member problems underutilize the chip;
-    batching fills it), the speedup over serial is >4x, and both
-    executions agree to f32 reduction-order roundoff."""
-    import json
-    import os
-
-    path = os.path.join(os.path.dirname(__file__), "..", "results",
-                        "ensemble_throughput_r04.json")
-    with open(path) as f:
-        d = json.load(f)
-    assert d["config"]["batch"] == 8
-    assert d["speedup"] > 4.0, d["speedup"]
-    assert d["batch_vs_one_member"] < 2.0, d["batch_vs_one_member"]
-    assert d["serial_batch_rel_agreement"] < 1e-4
-    assert len(d["errors"]) == 8
 
 
 def test_mms_harness_smoke():
@@ -586,38 +538,6 @@ def test_mms_curved_projection_reproduces_polynomials():
     assert float(jnp.max(jnp.abs(dq - u))) < 1e-11
 
 
-def test_tgv_results():
-    """The EXECUTED 3D Taylor-Green vortex artifact (round 4, TPU f32,
-    N=3, K=4096, Re=400, Ma=0.1, 20200 steps to t*=12): the classic
-    transition benchmark run on the full 3D CNS path, checked against
-    its exact conservation structure.
-
-    - KE starts at the analytic 1/8 and decays monotonically;
-    - total mass/momentum/energy drift stays at f32 roundoff
-      (periodic domain: conservation is exact for the scheme);
-    - entropy stability: rhstest < 0 at every logged step and the
-      viscous entropy production is positive;
-    - the dissipation rate rises to a single peak (measured 1.11e-2 at
-      t* = 6.3, the classic Re=400 neighborhood) well above its t*=0
-      value."""
-    import json
-    import os
-
-    path = os.path.join(os.path.dirname(__file__), "..", "results",
-                        "tgv_r04.json")
-    with open(path) as f:
-        d = json.load(f)
-    assert abs(d["ke"][0] - 0.125) < 1e-5
-    assert d["ke_monotone_decay"] is True
-    assert d["ke"][-1] < 0.5 * d["ke"][0]
-    assert all(dr < 1e-4 for dr in d["conservation_rel_drift"]), \
-        d["conservation_rel_drift"]
-    assert d["rhstest_max"] < 0.0
-    assert d["rhstest_visc_min"] > 0.0
-    assert 3.0 < d["peak"]["t_star"] < 11.0, d["peak"]
-    assert d["peak"]["eps"] > 3.0 * d["eps"][0]
-
-
 def test_mms_source_consistency():
     """Local truncation of the projected-source RHS on the interpolated
     exact state: resid = rhs(q_ex) + P(S) - du_ex/dt, measured in the
@@ -677,33 +597,3 @@ def test_mms_convergence_results():
         assert all(e2 < e1 for e1, e2 in zip(errs, errs[1:])), (n, errs)
         assert row["rates"][-1] > n + 0.4, (n, row["rates"])
         assert errs[-1] < 5e-4, (n, errs)
-
-
-def test_tgv_re1600_dns_anchor():
-    """The EXECUTED Re=1600 TGV artifact (round 5, TPU f32, N=3,
-    K=4096 = 64^3 DOF, Ma=0.1, t*=12) against the vendored 512^3 DNS
-    dissipation-peak values (van Rees et al. 2011 / HiOCFD case 3.5,
-    physics/tgv_benchmarks.py): the first QUANTITATIVE external anchor
-    for the 3D viscous path (the reference has no TGV at all).
-    Measured: eps_peak = 1.312e-2 at t* = 8.96 vs DNS 1.208e-2 at
-    9.03 — within the resolution-graded bands."""
-    import json
-    import os
-
-    from esdg_cns_tpu.physics.tgv_benchmarks import compare_re1600
-
-    path = os.path.join(os.path.dirname(__file__), "..", "results",
-                        "tgv_r05.json")
-    with open(path) as f:
-        d = json.load(f)
-    assert d["config"]["re"] == 1600.0
-    a = d["re1600_anchor"]
-    assert a["eps_pass"] and a["t_star_pass"], a
-    # the comparison fields must be reproducible from the vendored data
-    re = compare_re1600(d["peak"]["eps"], d["peak"]["t_star"],
-                        dof_1d=(d["config"]["n"] + 1) * d["config"]["k1d"])
-    assert abs(re["eps_rel_dev"] - a["eps_rel_dev"]) < 1e-12
-    assert re["eps_pass"] and re["t_star_pass"]
-    # physics oracles still hold on this run
-    assert d["ke_monotone_decay"]
-    assert d["rhstest_max"] < 0.0

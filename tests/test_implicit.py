@@ -388,7 +388,7 @@ def test_newton_reports_residual_norm_not_step():
 
 def test_implicit_midpoint_sharded_pjit():
     """Preconditioned implicit midpoint under pjit element sharding
-    matches the single-device result (VERDICT round-2 item 6)."""
+    matches the single-device result."""
     import jax
     from jax.sharding import Mesh
 

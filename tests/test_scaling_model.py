@@ -1,23 +1,16 @@
-"""ICI scaling model: the exchange payloads it prices must be the ones
-the production RHS builders actually ship (pinning the comm-avoiding
-designs), and the boundary size must come from the real halo pattern."""
+"""Exchange accounting: the payloads must be the ones the production RHS
+builders actually ship (pinning the comm-avoiding designs), and the
+boundary size must come from the real halo pattern."""
 
 import jax
-import jax.numpy as jnp
-import numpy as np
-import pytest
 
 from esdg_cns_tpu.core import build_discretization, ref_tri
 from esdg_cns_tpu.mesh import uniform_tri_mesh
 from esdg_cns_tpu.parallel import (
-    V5E,
     build_halo_exchange,
     halo_bytes_per_rhs,
     measure_exchange_rows,
-    predict_scaling,
-    scaling_report,
 )
-from esdg_cns_tpu.physics import primitive_to_conservative
 from esdg_cns_tpu.presets import euler_hex_3d, lid_driven_cavity
 from esdg_cns_tpu.solvers import make_cns_rhs, make_euler_rhs
 
@@ -80,33 +73,3 @@ def test_slab_boundary_independent_of_device_count():
     b2 = halo_bytes_per_rhs(disc, [6], n_devices=2)
     assert b4["n_send_traces"] == b8["n_send_traces"]
     assert b2["n_send_traces"] == 2 * b4["n_send_traces"]
-
-
-def test_predict_scaling_shapes_and_bounds():
-    disc, _ = _tri_euler(k1d=8)
-    t_stage = 1e-3
-    weak = predict_scaling(disc, [6], t_stage, mode="weak",
-                           n_devices=(2, 8, 64))
-    for row in weak:
-        assert 0.0 < row["efficiency_serial"] <= row[
-            "efficiency_overlapped"] <= 1.0
-    # weak scaling on a ring: per-device comm is n-independent
-    assert weak[0]["t_comm_s"] == weak[-1]["t_comm_s"]
-
-    strong = predict_scaling(disc, [6], t_stage, mode="strong",
-                             n_devices=(2, 8, 64))
-    effs = [r["efficiency_overlapped"] for r in strong]
-    assert effs == sorted(effs, reverse=True)  # degrades with n
-    # comm/compute ratio grows linearly when splitting a fixed problem
-    assert strong[-1]["comm_compute_ratio"] > strong[0][
-        "comm_compute_ratio"]
-
-
-def test_report_structure():
-    disc, _ = _tri_euler(k1d=4)
-    rep = scaling_report(disc, [6], 1e-3, chip=V5E)
-    assert rep["chip"] == "v5e"
-    assert rep["halo"]["rows_total"] == 6
-    assert {r["mode"] for r in rep["weak"]} == {"weak"}
-    assert {r["mode"] for r in rep["strong"]} == {"strong"}
-    assert rep["dof"] == 4 * disc.np_ * disc.num_elements

@@ -151,67 +151,42 @@ def _hex_setup(k1d=8, n=2):
     return euler_hex_3d(n=n, k1d=k1d)
 
 
-def test_hex_slab_halo_matches_gather_traces():
-    """The structured slab halo (local rolls + one-layer z ppermute)
-    reproduces the single-device flat-roll exchange exactly."""
-    from esdg_cns_tpu.parallel import build_hex_slab_halo, partition_specs
-    from jax import shard_map
-
-    disc, _ = _hex_setup()
-    rng = np.random.default_rng(3)
-    traces = jnp.asarray(rng.standard_normal((3, disc.nfq, disc.num_elements)))
-    ref = disc.gather_traces(traces)
-
-    mesh = Mesh(np.array(jax.devices()[:8]), ("e",))
-    halo = build_hex_slab_halo(disc, 8)
-    specs = partition_specs(halo, disc.num_elements, "e")
-    f = shard_map(
-        lambda tr, h: h.gather(tr),
-        mesh=mesh,
-        in_specs=(P(None, None, "e"), specs),
-        out_specs=P(None, None, "e"),
-    )
-    got = f(traces, halo)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_fused_sharded_matches_single_device():
-    """The production fused Pallas path (the benchmarked configuration)
-    under shard_map + HexSlabHalo matches the single-device fused RHS."""
-    from esdg_cns_tpu.parallel import make_sharded_euler_rhs_fused
-    from esdg_cns_tpu.solvers.euler_fused import make_euler_rhs_fused
-
-    disc, q = _hex_setup()
-    kw = dict(dissipation=True, compute_rhstest=True, interpret=True)
-    dq_ref, aux_ref = jax.jit(make_euler_rhs_fused(disc, **kw))(q)
+@pytest.mark.parametrize("what", ["rhs", "lsrk45"])
+@pytest.mark.parametrize("problem", ["euler_lines", "cns3d_affine"])
+def test_sharded_hex_matches_single_device(problem, what):
+    """The hex production paths under shard_map + ring ppermute halo
+    (z-layer slabs): Euler with line-sparse flux differencing (periodic)
+    and the 3D CNS cavity on the composed affine operators (wall BCs)
+    match the single-device RHS, and five LSRK45 steps track the
+    single-device trajectory."""
+    from esdg_cns_tpu.parallel.sharding import make_sharded_cns_rhs_affine
+    from esdg_cns_tpu.presets import lid_driven_cavity_3d
+    from esdg_cns_tpu.solvers import make_cns_rhs_affine
 
     mesh = Mesh(np.array(jax.devices()[:8]), ("e",))
-    dq_sm, aux_sm = jax.jit(make_sharded_euler_rhs_fused(mesh, disc, **kw))(q)
-    np.testing.assert_allclose(
-        np.asarray(dq_sm), np.asarray(dq_ref), rtol=1e-13, atol=1e-13
-    )
-    np.testing.assert_allclose(
-        float(aux_sm["rhstest"]), float(aux_ref["rhstest"]), atol=1e-10
-    )
-
-
-def test_fused_sharded_time_integration():
-    """Five LSRK45 steps of the sharded fused path track the
-    single-device fused trajectory."""
-    from esdg_cns_tpu.parallel import make_sharded_euler_rhs_fused
-    from esdg_cns_tpu.solvers.euler_fused import make_euler_rhs_fused
-
-    disc, q = _hex_setup()
-    kw = dict(dissipation=True, compute_rhstest=False, interpret=True)
-    rhs_ref = make_euler_rhs_fused(disc, **kw)
-    qf_ref, _ = jax.jit(lambda q0: lsrk45(rhs_ref, q0, 1e-3, 5))(q)
-
-    mesh = Mesh(np.array(jax.devices()[:8]), ("e",))
-    rhs_sm = make_sharded_euler_rhs_fused(mesh, disc, **kw)
-    qf_sm, _ = jax.jit(lambda q0: lsrk45(rhs_sm, q0, 1e-3, 5))(q)
-    np.testing.assert_allclose(
-        np.asarray(qf_sm), np.asarray(qf_ref), rtol=1e-12, atol=1e-12
-    )
+    if problem == "euler_lines":
+        disc, q = _hex_setup()
+        kw = dict(dissipation=True, flux_diff_impl="lines",
+                  compute_rhstest=what == "rhs")
+        ref = make_euler_rhs(disc, **kw)
+        sm = make_sharded_euler_rhs(mesh, disc, **kw)
+    else:
+        disc, q, bc, p = lid_driven_cavity_3d(n=2, k1d=8)
+        kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                  inviscid_dissipation=True, viscous_dissipation=True,
+                  flux_diff_impl="lines", compute_rhstest=what == "rhs")
+        ref = make_cns_rhs_affine(disc, **kw)
+        sm = make_sharded_cns_rhs_affine(mesh, disc, **kw)
+    if what == "rhs":
+        (a, aux_a), (b, aux_b) = jax.jit(ref)(q), jax.jit(sm)(q)
+        np.testing.assert_allclose(float(aux_b["rhstest"]),
+                                   float(aux_a["rhstest"]), atol=1e-10)
+    else:
+        a = jax.jit(lambda q0: lsrk45(ref, q0, 1e-3, 5)[0])(q)
+        b = jax.jit(lambda q0: lsrk45(sm, q0, 1e-3, 5)[0])(q)
+    scale = float(jnp.abs(a).max())
+    np.testing.assert_allclose(np.asarray(b) / scale, np.asarray(a) / scale,
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_pjit_cavity_wall_bc_equivalence():
@@ -344,54 +319,6 @@ def test_shard_map_cavity_3d_wall_bc():
                                rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(float(aux_sm["rhstest"]),
                                float(aux_ref["rhstest"]), atol=1e-12)
-
-
-def test_shard_map_cavity_3d_fused_hex():
-    """The fused CNS kernels (volume_impl='fused_hex' + the fused
-    viscous mid-section) under shard_map: pallas_call outputs carry no
-    varying-mesh-axes annotation, so make_sharded_rhs must run with
-    check_vma=False — this combination raised a ValueError before the
-    round-3 fix (and was validated bit-exact COMPILED on the real TPU,
-    PARITY.md)."""
-    from esdg_cns_tpu.parallel.sharding import make_sharded_cns_rhs_affine
-    from esdg_cns_tpu.presets import lid_driven_cavity_3d
-    from esdg_cns_tpu.solvers import make_cns_rhs_affine
-
-    disc, q0, bc, p = lid_driven_cavity_3d(n=2, k1d=8)
-    kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
-              inviscid_dissipation=True, viscous_dissipation=True,
-              volume_impl="fused_hex", interpret=True)
-    dq_ref, aux_ref = jax.jit(make_cns_rhs_affine(disc, **kw))(q0)
-    mesh = Mesh(np.array(jax.devices()[:8]), ("e",))
-    dq_sm, aux_sm = jax.jit(make_sharded_cns_rhs_affine(mesh, disc, **kw))(q0)
-    scale = float(jnp.abs(dq_ref).max())
-    np.testing.assert_allclose(np.asarray(dq_sm) / scale,
-                               np.asarray(dq_ref) / scale,
-                               rtol=1e-11, atol=1e-11)
-    np.testing.assert_allclose(float(aux_sm["rhstest"]),
-                               float(aux_ref["rhstest"]), atol=1e-10)
-
-
-def test_shard_map_fused_surface_only():
-    """surface_impl='fused' with the default XLA volume path: the
-    uses_pallas gate must also cover this selector (it carries no
-    varying-mesh-axes annotation either); before the round-4 fix
-    shard_map's vma check rejected the combination at trace time."""
-    from esdg_cns_tpu.parallel.sharding import make_sharded_cns_rhs_affine
-    from esdg_cns_tpu.presets import lid_driven_cavity
-    from esdg_cns_tpu.solvers import make_cns_rhs_affine
-
-    disc, q0, bc, p = lid_driven_cavity(n=2, k1d=8)
-    kw = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
-              inviscid_dissipation=True, viscous_dissipation=True,
-              surface_impl="fused", interpret=True)
-    dq_ref, aux_ref = jax.jit(make_cns_rhs_affine(disc, **kw))(q0)
-    mesh = Mesh(np.array(jax.devices()[:8]), ("e",))
-    dq_sm, aux_sm = jax.jit(make_sharded_cns_rhs_affine(mesh, disc, **kw))(q0)
-    scale = float(jnp.abs(dq_ref).max())
-    np.testing.assert_allclose(np.asarray(dq_sm) / scale,
-                               np.asarray(dq_ref) / scale,
-                               rtol=1e-11, atol=1e-11)
 
 
 def test_shard_map_rejects_dirichlet_closures():
